@@ -10,14 +10,20 @@ script exits non-zero. The last lines are the kernel table, the card's name
 and power limit, and the result line.
 
 Tolerances: the datagen kernel against its plain version rtol 1e-5,
-atol 1e-6 (the same float32 arithmetic; only the order of a few sums and the
-rounding of fused multiply-adds differ). The critic-gradient kernel against
+atol 1e-6 at every frame length held, 8 to 1024 samples (the same float32
+arithmetic; only the order of the phase scan and the frame reductions and
+the rounding of fused multiply-adds differ). The critic-gradient kernel against
 its plain version and against autograd rtol 1e-4, atol 1e-4 times the
 tensor's largest entry: the batch sums are taken in another order. One
 outer step through the kernels and one through the plain path (FFT datagen,
 autograd critic) from the same state and draws: each parameter tensor's
-update agrees within 1e-3 of that update's largest entry. The kernel table gives each kernel's time, plain time and error at the main
-path's batch (64); the phase lines give them at every batch checked.
+update agrees within 1e-3 of that update's largest entry. The kernel table
+gives each kernel's time per call (``ms``, with its host work), device time
+per call (``device_us_per_launch``: the profiler's time of the kernel's own
+launches), plain time and error at the main path's batch (64); the phase
+lines give them at every length and batch timed, and at the large batches
+also the time per launch of back-to-back launches of the kernel alone (CUDA
+events; at B = 64 that would time the host's call rate, not the device).
 """
 
 from __future__ import annotations
@@ -36,8 +42,10 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM data sheet
 FP32_FLOPS_PER_S = 67e12    # H100 SXM data sheet, float32 outside the tensor cores
 MAIN_B = 64                 # the mini recipe's batch (config/config.yaml)
 DATAGEN_BIG_B = 1 << 20
-CRITIC_BIG_B = 65536
-CRITIC_RAGGED_B = 1000      # not a multiple of the kernel's 16-row tile
+DATAGEN_LENGTHS = (8, 16, 32, 64, 128, 1024)   # held against the plain version
+DATAGEN_TIMED = ((16, MAIN_B), (16, DATAGEN_BIG_B), (1024, 4096))   # (L, B)
+CRITIC_BATCHES = (1, MAIN_B, 1000, 65536)      # 1000: ragged against the 4-warp blocks
+CRITIC_TIMED = (MAIN_B, 65536)
 CRITIC_PARAMS = 521         # the mini critic's parameters, one gradient each
 STEP_RTOL = 1e-3            # kernel vs plain outer step, of each tensor's largest update
 
@@ -63,6 +71,45 @@ def time_ms(fn, reps: int = 15, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
+def back_to_back_us_per_launch(fn, args, n: int = 200) -> float:
+    """Microseconds per launch: CUDA events around ``n`` back-to-back
+    launches of the kernel alone (``fn(*args)`` from the wrapper's
+    ``prepare``: no checks or allocations between launches). Device time
+    only where a launch takes longer on the device than on the host."""
+    for _ in range(10):
+        fn(*args)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    errs = {fn(*args) for _ in range(n)}
+    end.record()
+    end.synchronize()
+    if errs != {0}:
+        raise RuntimeError(f"kernel launches failed: CUDA errors {errs}")
+    return start.elapsed_time(end) / n * 1e3
+
+
+def profiled_us_per_call(fn, kernel: str, n: int = 20) -> float:
+    """Device microseconds per call of ``fn`` spent in kernels whose name
+    holds ``kernel``: torch.profiler's kernel times summed over ``n`` calls."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for evt in prof.key_averages():
+        if kernel in evt.key and evt.device_type != torch.autograd.DeviceType.CPU:
+            us += float(getattr(evt, "self_device_time_total",
+                                getattr(evt, "self_cuda_time_total", 0.0)))
+    if us <= 0:
+        raise RuntimeError(f"the profiler traced no device time for {kernel}")
+    return us / n
+
+
 def max_err(got: dict, ref: dict, keys) -> float:
     return max(float((got[k] - ref[k]).abs().max()) for k in keys)
 
@@ -76,10 +123,12 @@ def check_close(got, ref, rtol, atol, what):
 def datagen_bound_ms(b: int, L: int) -> tuple[float, str]:
     """Least time for one Philox-mode call: the outputs the training step
     reads written once (noisy, clean, snr; not the normaliser ``scale``)
-    against the IDFT's 8 L^2 FLOP per frame plus about 30 per sample for the
-    draws, impairments and noise."""
+    against the least operations of the same work: an inverse DFT of L
+    points in about 5 L log2 L FLOP a frame (FFT-structured; the kernel's
+    direct sum does 8 L^2) plus about 30 per sample for the draws,
+    impairments and noise."""
     t_bytes = b * (2 * 2 * L + 1) * 4 / HBM_BYTES_PER_S * 1e3
-    t_ops = b * (8 * L * L + 30 * L) / FP32_FLOPS_PER_S * 1e3
+    t_ops = b * (5 * L * math.log2(L) + 30 * L) / FP32_FLOPS_PER_S * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -97,10 +146,11 @@ def critic_macs_per_frame() -> int:
 
 
 def critic_bound_ms(b: int) -> tuple[float, str]:
-    """Least time for one call: the inputs (two [B, 64] rows, eps, the
-    critic's parameters) read once and one gradient per parameter plus
-    three metric sums written once, against 2 FLOP per multiply-add."""
-    t_bytes = (b * (2 * 64 + 1) + 2 * CRITIC_PARAMS + 3) * 4 / HBM_BYTES_PER_S * 1e3
+    """Least time for one call: the inputs (clean, fake and noisy
+    [B, 16, 2], alpha, the critic's parameters) read once and one gradient
+    per parameter plus the five metrics written once, against 2 FLOP per
+    multiply-add."""
+    t_bytes = (b * (3 * 32 + 1) + 2 * CRITIC_PARAMS + 5) * 4 / HBM_BYTES_PER_S * 1e3
     t_ops = b * 2 * critic_macs_per_frame() / FP32_FLOPS_PER_S * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
@@ -127,6 +177,13 @@ def main() -> int:
     from ofdmgan_tpu_torch.training.wgan_gp import LossConfig, TrainStep, critic_loss_fn
 
     dev = resolve_device("cuda")
+
+    def datagen_cfgs(L: int) -> dict:
+        """The linear and the nonlinear datagen configuration at frame length L."""
+        return {False: sdg.DatagenConfig(frame_length=L),
+                True: sdg.DatagenConfig(frame_length=L, nonlinear=True,
+                                        impairments=ImpairmentConfig(pa_saturation=0.8))}
+
     gen = torch.Generator(device=dev)
     gen.manual_seed(1234)
 
@@ -139,22 +196,25 @@ def main() -> int:
                 print(f"[{name}] {line.strip()}", flush=True)
     log("build", t, built=[n for n, txt in logs.items() if txt], build_s=round(time.time() - t, 3))
 
-    # ---- 2. datagen kernel against its plain version
+    # ---- 2. datagen kernel against its plain version, at every length listed
     t = time.time()
-    cfgs = {False: sdg.DatagenConfig(),
-            True: sdg.DatagenConfig(nonlinear=True, impairments=ImpairmentConfig(pa_saturation=0.8))}
     keys = ("noisy", "clean", "snr", "scale")
-    datagen_err = {}   # worst error over both configurations, by batch size
-    for b in (MAIN_B, DATAGEN_BIG_B):
-        for nl, cfg in cfgs.items():
-            draws = sdg.make_draws(gen, b, 16)
-            got = dk.synthetic_batch_from_draws(draws, cfg)
-            ref = dk.synthetic_batch_plain(draws, cfg)
-            torch.cuda.synchronize()
-            for k in keys:
-                check_close(got[k], ref[k], 1e-5, 1e-6, f"datagen B={b} nonlinear={nl} {k}")
-            datagen_err[b] = max(datagen_err.get(b, 0.0), max_err(got, ref, keys))
-            del draws, got, ref
+    datagen_err = {}   # worst error over both configurations, by length and batch
+    for L in DATAGEN_LENGTHS:
+        cfgs = datagen_cfgs(L)
+        for b in (MAIN_B, DATAGEN_BIG_B) if L == 16 else (MAIN_B,):
+            for nl, cfg in cfgs.items():
+                draws = sdg.make_draws(gen, b, L)
+                got = dk.synthetic_batch_from_draws(draws, cfg)
+                ref = dk.synthetic_batch_plain(draws, cfg)
+                torch.cuda.synchronize()
+                for k in keys:
+                    check_close(got[k], ref[k], 1e-5, 1e-6,
+                                f"datagen L={L} B={b} nonlinear={nl} {k}")
+                e = max_err(got, ref, keys)
+                datagen_err[f"L{L}_B{b}"] = max(datagen_err.get(f"L{L}_B{b}", 0.0), e)
+                del draws, got, ref
+    cfgs = datagen_cfgs(16)
     out = dk.synthetic_batch(gen, DATAGEN_BIG_B, cfgs[False])
     snr = out["snr"]
     p_clean = (out["clean"] ** 2).sum((1, 2)) / 16
@@ -166,20 +226,34 @@ def main() -> int:
     }
     if not (stats["snr_min"] >= 0 and stats["snr_max"] <= 30 and abs(stats["snr_mean"] - 15) < 0.1):
         raise AssertionError(f"datagen SNR statistics off: {stats}")
-    if abs(stats["clean_power_mean"] - 1) > 0.01 or abs(stats["noise_ratio_over_target"] - 1) > 0.01:
+    # written so that a NaN fails
+    if not (abs(stats["clean_power_mean"] - 1) <= 0.01
+            and abs(stats["noise_ratio_over_target"] - 1) <= 0.01):
         raise AssertionError(f"datagen power statistics off: {stats}")
-    out_nl = dk.synthetic_batch(gen, DATAGEN_BIG_B, cfgs[True])
-    if not all(bool(torch.isfinite(v).all()) for v in out_nl.values()):
-        raise AssertionError("nonlinear datagen produced non-finite values")
+    for L in DATAGEN_LENGTHS:
+        cfg = datagen_cfgs(L)[True]
+        out_nl = dk.synthetic_batch(gen, DATAGEN_BIG_B // L, cfg)
+        if not all(bool(torch.isfinite(v).all()) for v in out_nl.values()):
+            raise AssertionError(f"nonlinear datagen at L={L} produced non-finite values")
     del out, out_nl
     dg_times = {}
-    for b in (MAIN_B, DATAGEN_BIG_B):
-        draws = sdg.make_draws(gen, b, 16)
-        dg_times[b] = {
-            "ms": time_ms(lambda: dk.synthetic_batch(gen, b, cfgs[False])),
-            "plain_ms": time_ms(lambda: dk.synthetic_batch_plain(draws, cfgs[False])),
-            "bound_ms": datagen_bound_ms(b, 16)[0],
+    for L, b in DATAGEN_TIMED:
+        cfg = datagen_cfgs(L)[False]
+        draws = sdg.make_draws(gen, b, L)
+        bound, _ = datagen_bound_ms(b, L)
+        dg_times[f"L{L}_B{b}"] = {
+            "ms": time_ms(lambda: dk.synthetic_batch(gen, b, cfg)),
+            "device_us_per_launch": profiled_us_per_call(
+                lambda: dk.synthetic_batch(gen, b, cfg), "datagen_kernel"),
+            "plain_ms": time_ms(lambda: dk.synthetic_batch_plain(draws, cfg)),
+            "bound_ms": bound,
         }
+        if b > MAIN_B:
+            seed = torch.randint(0, 2 ** 62, (1,), dtype=torch.int64, generator=gen, device=dev)
+            fn, args, _out = dk.prepare(cfg, b, dev, seed, None)
+            dg_times[f"L{L}_B{b}"]["back_to_back_us_per_launch"] = \
+                back_to_back_us_per_launch(fn, args)
+            del _out
         del draws
     log("datagen", t, max_abs_err=datagen_err, stats=stats, times=dg_times)
 
@@ -191,40 +265,45 @@ def main() -> int:
         generator = MiniGenerator().to(dev)
     critic_err = {}
     cr_times = {}
-    for b in (MAIN_B, CRITIC_BIG_B, CRITIC_RAGGED_B):
+    for b in CRITIC_BATCHES:
         clean = torch.randn(b, 16, 2, generator=gen, device=dev)
         noisy = clean + 0.3 * torch.randn(b, 16, 2, generator=gen, device=dev)
-        eps = torch.rand(b, generator=gen, device=dev)
+        alpha = torch.rand(b, generator=gen, device=dev)
         with torch.no_grad():
-            fake = generator(noisy)
-        h0r, h0f = ck.pack_h0(clean, noisy), ck.pack_h0(fake, noisy)
-        mats = ck.critic_dense_mats(critic)
-        got = ck.critic_grad_dense(h0r, h0f, eps, mats, 10.0)
-        ref = ck.critic_grad_plain(h0r, h0f, eps, mats, 10.0)
+            fake = generator(noisy)   # a transposed view, as in the training step
+        grads, aux = ck.critic_grad(critic, clean, fake, noisy, alpha, 10.0)
+        ref, ref_aux = ck.critic_grad_packed(critic, clean, fake, noisy, alpha, 10.0)
         torch.cuda.synchronize()
-        for k in ref:
-            check_close(got[k], ref[k], 1e-4, 1e-4 * float(ref[k].abs().max()), f"critic B={b} {k}")
-            critic_err[b] = max(critic_err.get(b, 0.0), float((got[k] - ref[k]).abs().max()))
-        grads, aux = ck.critic_grad(critic, h0r, h0f, eps, 10.0)
-        loss, aux_ref = critic_loss_fn(critic, generator, {"noisy": noisy, "clean": clean}, eps,
-                                       LossConfig())
-        grads_ref = torch.autograd.grad(loss, list(critic.parameters()))
-        for (name, _), g_ref in zip(critic.named_parameters(), grads_ref):
-            check_close(grads[name], g_ref, 1e-4, 1e-4 * float(g_ref.abs().max()) + 1e-7,
-                        f"critic B={b} {name} vs autograd")
-        for name in aux_ref:
-            check_close(aux[name], aux_ref[name], 1e-4, 1e-5, f"critic B={b} {name}")
-        if b != CRITIC_RAGGED_B:
+        loss, aux_auto = critic_loss_fn(critic, generator, {"noisy": noisy, "clean": clean},
+                                        alpha, LossConfig())
+        grads_auto = torch.autograd.grad(loss, list(critic.parameters()))
+        for (name, _), g_auto in zip(critic.named_parameters(), grads_auto):
+            for what, r in (("plain", ref[name]), ("autograd", g_auto)):
+                check_close(grads[name], r, 1e-4, 1e-4 * float(r.abs().max()) + 1e-7,
+                            f"critic B={b} {name} vs {what}")
+            critic_err[b] = max(critic_err.get(b, 0.0), float((grads[name] - ref[name]).abs().max()))
+        for name in aux_auto:
+            for what, r in (("plain", ref_aux[name]), ("autograd", aux_auto[name])):
+                check_close(aux[name], r, 1e-4, 1e-5, f"critic B={b} {name} vs {what}")
+        if b in CRITIC_TIMED:
             def autograd_step():
                 loss, _ = critic_loss_fn(critic, generator, {"noisy": noisy, "clean": clean},
-                                         eps, LossConfig())
+                                         alpha, LossConfig())
                 torch.autograd.grad(loss, list(critic.parameters()))
+            def kernel_call():
+                ck.critic_grad(critic, clean, fake, noisy, alpha, 10.0)
             cr_times[b] = {
-                "ms": time_ms(lambda: ck.critic_grad_dense(h0r, h0f, eps, mats, 10.0)),
-                "plain_ms": time_ms(lambda: ck.critic_grad_plain(h0r, h0f, eps, mats, 10.0)),
+                "ms": time_ms(kernel_call),
+                "device_us_per_launch": profiled_us_per_call(kernel_call, "critic_grad"),
+                "plain_ms": time_ms(
+                    lambda: ck.critic_grad_packed(critic, clean, fake, noisy, alpha, 10.0)),
                 "autograd_ms": time_ms(autograd_step),
                 "bound_ms": critic_bound_ms(b)[0],
             }
+            if b > MAIN_B:
+                fn, args, _out, _scratch = ck.prepare(critic, clean, fake, noisy, alpha, 10.0)
+                cr_times[b]["back_to_back_us_per_launch"] = back_to_back_us_per_launch(fn, args)
+                del _out, _scratch
     log("critic", t, max_abs_err=critic_err, times=cr_times)
 
     # ---- 4. train through both kernels with the config defaults
@@ -290,17 +369,18 @@ def main() -> int:
     # ---- 5. report
     db, dby = datagen_bound_ms(MAIN_B, 16)
     cb, cby = critic_bound_ms(MAIN_B)
+    dg_main, cr_main = dg_times[f"L16_B{MAIN_B}"], cr_times[MAIN_B]
     kernels = [
         {"name": "datagen", "route": "cuda", "source": "ofdmgan_tpu_torch/csrc/datagen.cu",
          "replaces": "ofdmgan_tpu/ops/pallas_datagen.py:200", "launches": launches["datagen"],
-         "max_abs_err": datagen_err[MAIN_B], "ms": dg_times[MAIN_B]["ms"],
-         "plain_ms": dg_times[MAIN_B]["plain_ms"], "bound_ms": db, "bound_by": dby,
-         "library_ms": None},
+         "max_abs_err": datagen_err[f"L16_B{MAIN_B}"], "ms": dg_main["ms"],
+         "plain_ms": dg_main["plain_ms"], "bound_ms": db, "bound_by": dby,
+         "library_ms": None, "device_us_per_launch": dg_main["device_us_per_launch"]},
         {"name": "critic_grad", "route": "cuda", "source": "ofdmgan_tpu_torch/csrc/critic_grad.cu",
          "replaces": "ofdmgan_tpu/ops/pallas_critic.py:195", "launches": launches["critic_grad"],
-         "max_abs_err": critic_err[MAIN_B], "ms": cr_times[MAIN_B]["ms"],
-         "plain_ms": cr_times[MAIN_B]["plain_ms"], "bound_ms": cb, "bound_by": cby,
-         "library_ms": None},
+         "max_abs_err": critic_err[MAIN_B], "ms": cr_main["ms"],
+         "plain_ms": cr_main["plain_ms"], "bound_ms": cb, "bound_by": cby,
+         "library_ms": None, "device_us_per_launch": cr_main["device_us_per_launch"]},
     ]
     log("total", t0)
     print(json.dumps({"kernels": kernels}), flush=True)

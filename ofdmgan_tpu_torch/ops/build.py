@@ -19,6 +19,8 @@ import time
 from pathlib import Path
 from typing import Dict, Iterable
 
+import torch
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ofdmgan_tpu_torch"
 SOURCES = ("datagen", "critic_grad")
@@ -70,6 +72,13 @@ def build(names: Iterable[str] = SOURCES) -> Dict[str, str]:
                 proc.wait()
             tmp.unlink(missing_ok=True)
     return logs
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """Streaming multiprocessors of a CUDA device; the launchers size their
+    grids by it."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 @functools.lru_cache(maxsize=None)

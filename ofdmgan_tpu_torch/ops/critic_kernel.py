@@ -2,13 +2,13 @@
 its plain PyTorch version.
 
 Counterpart of ``ofdmgan_tpu/ops/pallas_critic.py:60-268``. For the mini
-16-sample critic it computes the gradient of
+16-sample critic ``critic_grad`` computes the gradient of
 
     L_D = mean D(fake) - mean D(real) + gp_weight * GP
 
 with respect to every critic parameter, and the loss's metrics, from the
-packed critic inputs ``h0 = concat(candidate, condition).reshape(B, 64)`` and
-the per-sample interpolation uniforms ``eps`` ``[B]``. The work is done on
+critic, the frames ``clean``, ``fake`` and ``noisy`` ``[B, 16, 2]`` and the
+per-sample interpolation uniforms ``alpha`` ``[B]``. The math, written on
 the dense (block-Toeplitz) layer matrices of ``ops/dense_conv.py``:
 
     forward  z1 = h0 A1 + b1, a1 = m1*z1, z2 = a1 A2 + b2, a2 = m2*z2,
@@ -18,18 +18,23 @@ the dense (block-Toeplitz) layer matrices of ``ops/dense_conv.py``:
              dA1 += c^T e1, dA2 += c1^T e2, dw += pool(c2*m2),
              e2 = m2*q2, e1 = m1*(e2 A2^T), c1 = (c A1)*m1, c2 = c1 A2
 
-(the leaky masks have zero second derivative almost everywhere, as autograd
-of autograd assumes). The dense gradients map back to the conv kernels
-through autograd of the Toeplitz expansion (``dense_grads_to_params``).
+with ``h0 = concat(candidate, condition).reshape(B, 64)`` (the leaky masks
+have zero second derivative almost everywhere, as autograd of autograd
+assumes).
 
-A CUDA tensor goes to the kernel, a CPU tensor to the plain version, which
-computes the same sums batch-wide.
+A CUDA tensor goes to the kernel, which walks only the conv taps and writes
+the 521 parameter gradients and the five metrics in one call (a per-block
+stage and a second stage that sums the blocks, launched together). A CPU
+tensor goes to the plain version ``critic_grad_packed``: the dense sums of
+``critic_grad_plain`` on the packed rows, mapped back to the conv kernels
+through autograd of the Toeplitz expansion (``dense_grads_to_params``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 from typing import Dict, Tuple
 
 import torch
@@ -39,6 +44,11 @@ from . import build
 from .dense_conv import conv1d_dense_matrix
 
 IN, PO = 64, 16  # h0 width, pooled width
+FRAME = (16, 2)
+PARAM_SHAPES = (("conv1.weight", (8, 4, 3)), ("conv1.bias", (8,)),
+                ("conv2.weight", (16, 8, 3)), ("conv2.bias", (16,)),
+                ("dense.weight", (1, 16)), ("dense.bias", (1,)))
+METRICS = ("d_loss", "wasserstein_distance", "gradient_penalty", "d_real_mean", "d_fake_mean")
 launches = 0  # kernel launches since the caller last set it to 0
 
 
@@ -110,53 +120,72 @@ def critic_grad_plain(h0_real, h0_fake, eps, mats, gp_weight: float, slope: floa
 @functools.lru_cache(maxsize=None)
 def _library():
     lib = build.load("critic_grad")
-    ptr, f = ctypes.c_void_p, ctypes.c_float
-    lib.ofdm_critic_grad_launch.argtypes = [ctypes.c_int, f, f, f] + [ptr] * 11
-    lib.ofdm_critic_grad_launch.restype = ctypes.c_int
+    i, ll, f, ptr = ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p
+    lib.ofdm_critic_grad_launch.argtypes = [i, i, f, f] + [ptr, ll, ll, ll] * 3 + [ptr] * 10
+    lib.ofdm_critic_grad_launch.restype = i
     for name in ("ofdm_critic_grad_slot_floats", "ofdm_critic_grad_out_floats"):
         getattr(lib, name).argtypes = []
-        getattr(lib, name).restype = ctypes.c_int
-    lib.ofdm_critic_grad_blocks.argtypes = [ctypes.c_int]
-    lib.ofdm_critic_grad_blocks.restype = ctypes.c_int
+        getattr(lib, name).restype = i
+    lib.ofdm_critic_grad_blocks.argtypes = [i, i]
+    lib.ofdm_critic_grad_blocks.restype = i
     return lib
 
 
-def _launch(h0_real, h0_fake, eps, mats, gp_weight: float, slope: float):
-    global launches
-    b = h0_real.shape[0]
-    dev = h0_real.device
-    want = {"h0_real": (h0_real, (b, IN)), "h0_fake": (h0_fake, (b, IN)), "eps": (eps, (b,)),
-            **{k: (mats[k], (IN, IN)) for k in ("a1", "a2")},
-            **{k: (mats[k], (IN,)) for k in ("b1", "b2", "q2")}}
-    for name, (x, shape) in want.items():
-        if (x.device != dev or x.dtype != torch.float32 or tuple(x.shape) != shape
-                or not x.is_contiguous()):
-            raise ValueError(f"{name} must be contiguous float32 {shape} on {dev}")
+def _check_critic(critic: nn.Module) -> None:
+    shapes = tuple((n, tuple(p.shape)) for n, p in critic.named_parameters())
+    if shapes != PARAM_SHAPES:
+        raise ValueError("the critic-gradient kernel covers the mini 16-sample critic")
+
+
+def _split(out: torch.Tensor):
+    """The kernel's output buffer -> (gradient per parameter, metrics), as views."""
+    grads, off = {}, 0
+    for name, shape in PARAM_SHAPES:
+        n = math.prod(shape)
+        grads[name] = out[off:off + n].view(shape)
+        off += n
+    return grads, {m: out[off + i] for i, m in enumerate(METRICS)}
+
+
+def prepare(critic, clean, fake, noisy, alpha, gp_weight: float, slope: float = 0.2):
+    """Check the inputs and allocate the buffers: ``(launcher, its arguments,
+    output buffer, scratch buffer)``. ``launcher(*args)`` launches the kernel
+    (both stages) once and returns a CUDA error code; ``critic_grad`` does
+    this and counts it, ``chip_smoke.py`` repeats it to time the kernel alone
+    at large batches."""
+    _check_critic(critic)
+    b, dev = clean.shape[0], clean.device
+    for name, x in (("clean", clean), ("fake", fake), ("noisy", noisy)):
+        if x.device != dev or x.dtype != torch.float32 or tuple(x.shape) != (b, *FRAME):
+            raise ValueError(f"{name} must be float32 {(b, *FRAME)} on {dev}")
+    if (alpha.device != dev or alpha.dtype != torch.float32 or tuple(alpha.shape) != (b,)
+            or not alpha.is_contiguous()):
+        raise ValueError(f"alpha must be contiguous float32 ({b},) on {dev}")
+    params = dict(critic.named_parameters())
+    for name, p in params.items():
+        if p.device != dev or p.dtype != torch.float32 or not p.is_contiguous():
+            raise ValueError(f"critic parameter {name} must be contiguous float32 on {dev}")
     lib = _library()
-    nblocks = lib.ofdm_critic_grad_blocks(b)
-    partial = torch.empty(nblocks * lib.ofdm_critic_grad_slot_floats(),
+    nblocks = lib.ofdm_critic_grad_blocks(b, build.sm_count(dev))
+    scratch = torch.empty(nblocks * lib.ofdm_critic_grad_slot_floats(),
                           dtype=torch.float32, device=dev)
     out = torch.empty(lib.ofdm_critic_grad_out_floats(), dtype=torch.float32, device=dev)
-    err = lib.ofdm_critic_grad_launch(
-        b, slope, 2.0 * gp_weight / b, 1.0 / b,
-        h0_real.data_ptr(), h0_fake.data_ptr(), eps.data_ptr(),
-        mats["a1"].data_ptr(), mats["a2"].data_ptr(), mats["b1"].data_ptr(),
-        mats["b2"].data_ptr(), mats["q2"].data_ptr(), partial.data_ptr(), out.data_ptr(),
-        torch.cuda.current_stream(dev).cuda_stream)
+    args = (b, nblocks, slope, gp_weight,
+            clean.data_ptr(), *clean.stride(), fake.data_ptr(), *fake.stride(),
+            noisy.data_ptr(), *noisy.stride(), alpha.data_ptr(),
+            *(params[name].data_ptr() for name, _ in PARAM_SHAPES),
+            scratch.data_ptr(), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    return lib.ofdm_critic_grad_launch, args, out, scratch
+
+
+def _launch(critic, clean, fake, noisy, alpha, gp_weight: float, slope: float):
+    global launches
+    fn, args, out, _scratch = prepare(critic, clean, fake, noisy, alpha, gp_weight, slope)
+    err = fn(*args)
     if err != 0:
         raise RuntimeError(f"critic-gradient kernel launch failed: CUDA error {err}")
     launches += 1
-    return {"gA1": out[:4096].view(IN, IN), "gA2": out[4096:8192].view(IN, IN),
-            "gb1": out[8192:8256], "gb2": out[8256:8320], "gw": out[8320:8336],
-            "sums": out[8336:8339]}
-
-
-def critic_grad_dense(h0_real, h0_fake, eps, mats, gp_weight: float, slope: float = 0.2):
-    """Dense-matrix gradients and sums: the kernel on CUDA, the plain
-    version on CPU."""
-    if h0_real.device.type == "cuda":
-        return _launch(h0_real, h0_fake, eps, mats, gp_weight, slope)
-    return critic_grad_plain(h0_real, h0_fake, eps, mats, gp_weight, slope)
+    return _split(out)
 
 
 def dense_grads_to_params(critic: nn.Module, dense: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -178,14 +207,15 @@ def dense_grads_to_params(critic: nn.Module, dense: Dict[str, torch.Tensor]) -> 
     }
 
 
-def critic_grad(critic: nn.Module, h0_real: torch.Tensor, h0_fake: torch.Tensor,
-                eps: torch.Tensor, gp_weight: float, slope: float = 0.2
-                ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
-    """(gradient per critic parameter, metrics) of the critic loss, with the
-    metrics of ``training/wgan_gp.critic_loss_fn``."""
+def critic_grad_packed(critic: nn.Module, clean: torch.Tensor, fake: torch.Tensor,
+                       noisy: torch.Tensor, alpha: torch.Tensor, gp_weight: float,
+                       slope: float = 0.2):
+    """The kernel's plain version: the packed rows through the dense sums of
+    ``critic_grad_plain``, mapped back to the parameters, and the metrics."""
     mats = critic_dense_mats(critic)
-    dense = critic_grad_dense(h0_real, h0_fake, eps, mats, gp_weight, slope)
-    inv_b = 1.0 / h0_real.shape[0]
+    dense = critic_grad_plain(pack_h0(clean, noisy), pack_h0(fake, noisy), alpha, mats,
+                              gp_weight, slope)
+    inv_b = 1.0 / clean.shape[0]
     d_real = dense["sums"][0] * inv_b + mats["bd"]
     d_fake = dense["sums"][1] * inv_b + mats["bd"]
     gp = dense["sums"][2] * inv_b
@@ -193,3 +223,16 @@ def critic_grad(critic: nn.Module, h0_real: torch.Tensor, h0_fake: torch.Tensor,
            "wasserstein_distance": d_real - d_fake,
            "gradient_penalty": gp, "d_real_mean": d_real, "d_fake_mean": d_fake}
     return dense_grads_to_params(critic, dense), aux
+
+
+def critic_grad(critic: nn.Module, clean: torch.Tensor, fake: torch.Tensor,
+                noisy: torch.Tensor, alpha: torch.Tensor, gp_weight: float,
+                slope: float = 0.2
+                ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+    """(gradient per critic parameter, metrics) of the critic loss, with the
+    metrics of ``training/wgan_gp.critic_loss_fn``: the kernel for CUDA
+    tensors (one call, the results are views of its output), the plain
+    version for CPU ones."""
+    if clean.device.type == "cuda":
+        return _launch(critic, clean, fake, noisy, alpha, gp_weight, slope)
+    return critic_grad_packed(critic, clean, fake, noisy, alpha, gp_weight, slope)

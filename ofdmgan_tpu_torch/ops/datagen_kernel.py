@@ -11,7 +11,9 @@ the outputs times ``scale``).
 A CUDA tensor or generator goes to the kernel; a CPU one to the plain
 version, which repeats the kernel's arithmetic step by step from the same
 draws (standard normals ``zr``, ``zi``, ``pn``, ``nr``, ``ni`` ``[B, L]`` and
-uniforms ``u`` ``[B]``).
+uniforms ``u`` ``[B]``). Frame lengths: every ``L`` that the TPU kernel
+takes (``pallas_datagen._pack``: the divisors of 128 and the multiples of
+128) from 2 up to ``MAX_LENGTH``.
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import torch
 from . import build
 from ..signal.datagen import DatagenConfig, make_draws
 
-SUPPORTED_LENGTHS = (8, 16, 32)
+MAX_LENGTH = 1024
 DRAW_KEYS = ("zr", "zi", "pn", "nr", "ni")
 launches = 0  # kernel launches since the caller last set it to 0
 
@@ -40,8 +42,27 @@ def check_config(cfg: DatagenConfig) -> None:
             or not imp.phase_noise_enabled or imp.dc_enabled or imp.cfo_enabled)):
         raise ValueError("the datagen kernel covers the AWGN channel with the "
                          "default nonlinear chain (Rapp PA + IQ + phase noise)")
-    if cfg.frame_length not in SUPPORTED_LENGTHS:
-        raise ValueError(f"frame_length must be one of {SUPPORTED_LENGTHS}")
+    if not supports_length(cfg.frame_length):
+        raise ValueError(f"frame_length {cfg.frame_length} must divide 128 or be a multiple "
+                         f"of 128, and lie in [2, {MAX_LENGTH}]")
+
+
+def supports_length(L: int) -> bool:
+    """The lengths of ``pallas_datagen._pack`` from 2 up to ``MAX_LENGTH``
+    (``ofdm_datagen_supports`` in ``csrc/datagen.cu``)."""
+    return 2 <= L <= MAX_LENGTH and (128 % L == 0 if L <= 128 else L % 128 == 0)
+
+
+@functools.lru_cache(maxsize=None)
+def twiddles(L: int, device: torch.device) -> torch.Tensor:
+    """``[L, 2]`` float32 cos and sin of ``2 pi m / L``, computed in float64
+    and rounded, with the second half the exact negative of the first (the
+    kernel reads one entry for samples t and t + L/2); the kernel and the
+    plain version read the same table. Kept per device, so the kernel's call
+    copies nothing from the host."""
+    m = np.arange(L // 2) * (2 * np.pi / L)
+    half = np.stack([np.cos(m), np.sin(m)], axis=1).astype(np.float32)
+    return torch.from_numpy(np.concatenate([half, -half])).to(device)
 
 
 def _constants(cfg: DatagenConfig) -> Dict[str, np.float32]:
@@ -62,12 +83,10 @@ def synthetic_batch_plain(draws: Dict[str, torch.Tensor], cfg: DatagenConfig):
     """The kernel's arithmetic in PyTorch, from injected draws."""
     check_config(cfg)
     L = cfg.frame_length
-    f32 = torch.float32
     dev = draws["zr"].device
     zr, zi = draws["zr"], draws["zi"]
-    m = np.arange(L)   # the kernel's float32 twiddle table (csrc/datagen.cu)
-    cos_tbl = torch.tensor(np.cos(2 * np.pi * m / L), dtype=f32, device=dev)
-    sin_tbl = torch.tensor(np.sin(2 * np.pi * m / L), dtype=f32, device=dev)
+    tw = twiddles(L, dev)
+    cos_tbl, sin_tbl = tw[:, 0], tw[:, 1]
     t = torch.arange(L, device=dev)
     ar = torch.zeros_like(zr)
     ai = torch.zeros_like(zr)
@@ -102,20 +121,55 @@ def synthetic_batch_plain(draws: Dict[str, torch.Tensor], cfg: DatagenConfig):
     return {"noisy": noisy, "clean": clean, "snr": snr, "scale": mx}
 
 
+def box_muller_plain(bits: torch.Tensor) -> torch.Tensor:
+    """The kernel's Box-Muller in float64: random words ``bits`` ``[n, 2]``
+    (uint32 held in int32) -> ``[n, 2]`` float32 normals. A word's top 23
+    bits, offset by half a step, are its (0, 1) uniform."""
+    u = ((bits.to(torch.int64) & 0xFFFFFFFF) >> 9).double() * 2.0 ** -23 + 2.0 ** -24
+    r = torch.sqrt(-2.0 * torch.log(u[:, 0]))
+    ang = 2.0 * math.pi * u[:, 1]
+    return torch.stack([r * torch.cos(ang), r * torch.sin(ang)], dim=1).float()
+
+
+def box_muller(bits: torch.Tensor) -> torch.Tensor:
+    """The datagen kernel's Box-Muller on chosen random words ``bits``
+    ``[n, 2]`` (uint32 held in int32): on CUDA the kernel's own device
+    function, on CPU ``box_muller_plain``. For tests of the draws at the
+    extreme uniforms."""
+    if bits.device.type != "cuda":
+        return box_muller_plain(bits)
+    if bits.dtype != torch.int32 or bits.dim() != 2 or bits.shape[1] != 2:
+        raise ValueError("bits must be int32 [n, 2]")
+    bits = bits.contiguous()
+    out = torch.empty(bits.shape, dtype=torch.float32, device=bits.device)
+    fn = build.load("datagen").ofdm_datagen_box_muller
+    fn.argtypes = [ctypes.c_int] + [ctypes.c_void_p] * 3
+    fn.restype = ctypes.c_int
+    err = fn(bits.shape[0], bits.data_ptr(), out.data_ptr(),
+             torch.cuda.current_stream(bits.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"Box-Muller kernel launch failed: CUDA error {err}")
+    return out
+
+
 @functools.lru_cache(maxsize=None)
 def _launcher():
     fn = build.load("datagen").ofdm_datagen_launch
     ptr, f = ctypes.c_void_p, ctypes.c_float
-    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ptr, f, f,
-                   f, f, f, f, f, f, ptr, ptr, ptr, ptr, ptr, ptr,
+    fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ptr, f, f,
+                   f, f, f, f, f, f, ptr, ptr, ptr, ptr, ptr, ptr, ptr,
                    ptr, ptr, ptr, ptr, ptr]
     fn.restype = ctypes.c_int
     return fn
 
 
-def _launch(cfg: DatagenConfig, batch_size: int, device: torch.device,
+def prepare(cfg: DatagenConfig, batch_size: int, device: torch.device,
             seed: torch.Tensor | None, draws: Dict[str, torch.Tensor] | None):
-    global launches
+    """Check the inputs and allocate the outputs: ``(launcher, its arguments,
+    outputs)``. ``launcher(*args)`` launches the kernel once and returns a
+    CUDA error code; the wrappers do this and count it, ``chip_smoke.py``
+    repeats it to time the kernel alone. ``seed`` (Philox mode) or ``draws``
+    must outlive the launches."""
     check_config(cfg)
     L = cfg.frame_length
     ptrs = [None] * 6
@@ -126,9 +180,9 @@ def _launch(cfg: DatagenConfig, batch_size: int, device: torch.device,
                 continue
             x = draws[key]
             if (x.device != device or x.dtype != torch.float32 or tuple(x.shape) != want
-                    or not x.is_contiguous() or x.data_ptr() % 16):
+                    or not x.is_contiguous() or x.data_ptr() % 8):
                 raise ValueError(
-                    f"draw {key!r} must be contiguous, 16-byte aligned float32 {want} on {device}")
+                    f"draw {key!r} must be contiguous, 8-byte aligned float32 {want} on {device}")
             ptrs[i] = x.data_ptr()
     else:
         if seed.device != device or seed.dtype != torch.int64 or seed.numel() != 1:
@@ -138,16 +192,24 @@ def _launch(cfg: DatagenConfig, batch_size: int, device: torch.device,
     snr = torch.empty((batch_size,), dtype=torch.float32, device=device)
     scale = torch.empty_like(snr)
     k = _constants(cfg)
-    err = _launcher()(
-        batch_size, L, int(cfg.nonlinear), None if seed is None else seed.data_ptr(),
-        cfg.snr_min, cfg.snr_max, float(k["pa_inv_sat2"]), float(k["pa_p"]),
-        float(k["iq_g"]), float(k["iq_cos"]), float(k["iq_sin"]), float(k["pn_sigma"]),
-        *ptrs, noisy.data_ptr(), clean.data_ptr(), snr.data_ptr(), scale.data_ptr(),
-        torch.cuda.current_stream(device).cuda_stream)
+    args = (batch_size, L, build.sm_count(device), int(cfg.nonlinear),
+            None if seed is None else seed.data_ptr(),
+            cfg.snr_min, cfg.snr_max, float(k["pa_inv_sat2"]), float(k["pa_p"]),
+            float(k["iq_g"]), float(k["iq_cos"]), float(k["iq_sin"]), float(k["pn_sigma"]),
+            twiddles(L, device).data_ptr(), *ptrs, noisy.data_ptr(), clean.data_ptr(),
+            snr.data_ptr(), scale.data_ptr(), torch.cuda.current_stream(device).cuda_stream)
+    return _launcher(), args, {"noisy": noisy, "clean": clean, "snr": snr, "scale": scale}
+
+
+def _launch(cfg: DatagenConfig, batch_size: int, device: torch.device,
+            seed: torch.Tensor | None, draws: Dict[str, torch.Tensor] | None):
+    global launches
+    fn, args, out = prepare(cfg, batch_size, device, seed, draws)
+    err = fn(*args)
     if err != 0:
         raise RuntimeError(f"datagen kernel launch failed: CUDA error {err}")
     launches += 1
-    return {"noisy": noisy, "clean": clean, "snr": snr, "scale": scale}
+    return out
 
 
 def synthetic_batch_from_draws(draws: Dict[str, torch.Tensor], cfg: DatagenConfig):

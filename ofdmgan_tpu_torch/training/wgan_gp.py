@@ -124,9 +124,8 @@ class TrainStep:
             with torch.no_grad():
                 fake = self.generator(noisy)
             grads, aux = critic_kernel.critic_grad(
-                self.critic, critic_kernel.pack_h0(clean, noisy),
-                critic_kernel.pack_h0(fake, noisy), alpha.contiguous(),
-                self.loss_cfg.gp_weight, self.critic.leaky_slope)
+                self.critic, clean, fake, noisy, alpha, self.loss_cfg.gp_weight,
+                self.critic.leaky_slope)
             grads = [grads[name] for name, _ in self.critic.named_parameters()]
         else:
             loss, aux = critic_loss_fn(self.critic, self.generator, batch, alpha, self.loss_cfg)

@@ -9,8 +9,10 @@ and once through the plain path (autograd critic, FFT datagen). For each it
 prints the wall time per outer step (host clock around ``--steps`` steps
 ending in a synchronize, after 20 warm-up steps). For the kernel path it then
 records ``--profile_steps`` steps with ``torch.profiler`` and prints the
-device time per step by kernel name, and the device's idle share: one minus
-the device time per step over the unprofiled wall time per step. Prints one
+device time per step by kernel name and the device's idle share: one minus
+the device time per step over the unprofiled wall time per step. It also
+counts the ATen calls per step of both paths (``torch.profiler`` on the
+host). Prints one
 JSON object as its last line. Needs a GPU; it does not fall back to the CPU.
 """
 
@@ -82,6 +84,16 @@ def main() -> int:
     wall_ms = min(times["kernel"])
 
     from torch.profiler import ProfilerActivity, profile
+
+    def aten_calls_per_step(step: TrainStep) -> float:
+        with profile(activities=[ProfilerActivity.CPU]) as p:
+            for _ in range(args.profile_steps):
+                step(rng)
+            torch.cuda.synchronize()
+        calls = sum(e.count for e in p.key_averages() if e.key.startswith("aten::"))
+        return calls / args.profile_steps
+
+    aten_calls = {"kernel": aten_calls_per_step(kern), "plain": aten_calls_per_step(plain)}
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(args.profile_steps):
             kern(rng)
@@ -102,13 +114,14 @@ def main() -> int:
         idle = 1.0 - device_ms / wall_ms
         ranked = sorted(by_kernel.items(), key=lambda kv: -kv[1])
         by_kernel = {k: v for i, (k, v) in enumerate(ranked)
-                     if i < 15 or "critic_stage" in k or "datagen_kernel" in k}
+                     if i < 15 or "critic_grad" in k or "datagen_kernel" in k}
     print(card)
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "nvidia_smi": card,
         "batch": 64, "n_critic": 5,
         "step_ms": times, "steps_per_s_kernel": 1e3 / wall_ms,
         "steps_per_s_plain": 1e3 / min(times["plain"]),
+        "aten_calls_per_step": aten_calls,
         "profiled_device_ms_per_step": device_ms, "device_idle_share": idle,
         "device_ms_per_step_by_kernel": by_kernel,
     }))

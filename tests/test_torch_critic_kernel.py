@@ -1,6 +1,8 @@
 """The critic-gradient kernel's plain version against the Pallas TPU kernel
 (in interpret mode, as tests/test_pallas_critic.py:53 runs it) and against
-``jax.grad`` of ``critic_loss_fn``, with the same interpolation uniforms.
+``jax.grad`` of ``critic_loss_fn``, with the same interpolation uniforms;
+and the CUDA kernel's conv-form chain (only the taps inside the frame, the
+candidate-only penalty, the bias sums), written out in numpy, against both.
 
 Tolerance: rtol 1e-5, atol 1e-5 on gradients and metrics of order 0.1-5;
 the batch sums are taken in another order on each side.
@@ -48,8 +50,7 @@ def _port_grads(s):
     noisy, clean = torch.from_numpy(s["noisy"]), torch.from_numpy(s["clean"])
     with torch.no_grad():
         fake = s["tg"](noisy)
-    return ck.critic_grad(s["tc"], ck.pack_h0(clean, noisy), ck.pack_h0(fake, noisy),
-                          torch.from_numpy(s["eps"]), 10.0)
+    return ck.critic_grad(s["tc"], clean, fake, noisy, torch.from_numpy(s["eps"]), 10.0)
 
 
 def _compare(grads, aux, ref_grads, ref_aux):
@@ -134,3 +135,133 @@ def test_cpu_wrapper_takes_the_plain_version():
 def test_other_critic_shapes_raise():
     with pytest.raises(ValueError):
         ck.critic_dense_mats(MiniDiscriminator(conv1_channels=4))
+
+
+def _conv_taps(l_in, l_out):
+    """(k, t_out, t_in) of every tap inside the frame: t_in = 2 t_out - 1 + k,
+    so the padding tap t_in = -1 is left out."""
+    return [(k, t, 2 * t - 1 + k) for t in range(l_out) for k in range(3)
+            if 0 <= 2 * t - 1 + k < l_in]
+
+
+def conv_form_grads(params, clean, fake, noisy, alpha, gp_weight, slope=0.2):
+    """The kernel's chain in float64 numpy, tap by tap (csrc/critic_grad.cu):
+    torch-layout parameter gradients in ``named_parameters()`` order and the
+    metrics."""
+    w1, b1, w2, b2 = (params[k] for k in ("conv1.weight", "conv1.bias", "conv2.weight",
+                                          "conv2.bias"))
+    wd, bd = params["dense.weight"][0], params["dense.bias"][0]
+    b = clean.shape[0]
+    a = alpha[:, None, None]
+    h = np.stack([np.concatenate([x, noisy], -1)
+                  for x in (clean, fake, a * clean + (1 - a) * fake)])   # [3, B, 16, 4]
+    t1, t2 = _conv_taps(16, 8), _conv_taps(8, 4)
+
+    def fwd(x, w, taps, l_out):
+        y = np.zeros(x.shape[:-2] + (l_out, w.shape[0]))
+        for k, t, p in taps:
+            y[..., t, :] += x[..., p, :] @ w[:, :, k].T
+        return y
+
+    def bwd(d, w, taps, l_in):
+        x = np.zeros(d.shape[:-2] + (l_in, w.shape[1]))
+        for k, t, p in taps:
+            x[..., p, :] += d[..., t, :] @ w[:, :, k]
+        return x
+
+    def wgrad(d, x, taps, w):
+        g = np.zeros_like(w)
+        for k, t, p in taps:
+            dt, xp = d[..., t, :], x[..., p, :]
+            g[:, :, k] += dt.reshape(-1, dt.shape[-1]).T @ xp.reshape(-1, xp.shape[-1])
+        return g
+
+    def mask(z):
+        return np.where(z > 0, 1.0, slope)
+
+    z1 = fwd(h, w1, t1, 8) + b1
+    m1 = mask(z1)
+    x1 = z1 * m1
+    z2 = fwd(x1, w2, t2, 4) + b2
+    m2 = mask(z2)
+    x2 = z2 * m2
+    y = x2.sum(-2) @ wd                                   # [3, B], without the bias
+    dy = np.array([-1.0 / b, 1.0 / b])[:, None, None, None]
+    dz2 = dy * wd * m2[:2]
+    dz1 = bwd(dz2, w2, t2, 8) * m1[:2]
+    g_w1, g_w2 = wgrad(dz1, h[:2], t1, w1), wgrad(dz2, x1[:2], t2, w2)
+    g_wd = (dy[..., 0] * x2[:2].sum(-2)).sum((0, 1))
+    e2 = m2[2] * wd
+    e1 = bwd(e2, w2, t2, 8) * m1[2]
+    g = bwd(e1, w1, t1, 16)[..., :2]                      # dy/dh0 on the candidate
+    n = np.sqrt((g ** 2).sum((1, 2)) + 1e-12)
+    c = np.concatenate([(2 * gp_weight / b * (n - 1) / n)[:, None, None] * g,
+                        np.zeros_like(g)], -1)
+    c1 = fwd(c, w1, t1, 8) * m1[2]
+    g_w1 += wgrad(e1, c, t1, w1)
+    g_w2 += wgrad(e2, c1, t2, w2)
+    g_wd += (fwd(c1, w2, t2, 4) * m2[2]).sum((0, 1))
+    grads = {"conv1.weight": g_w1, "conv1.bias": dz1.sum((0, 1, 2)),
+             "conv2.weight": g_w2, "conv2.bias": dz2.sum((0, 1, 2)),
+             "dense.weight": g_wd[None, :], "dense.bias": np.zeros(1)}
+    d_real, d_fake, gp = y[0].mean() + bd, y[1].mean() + bd, ((n - 1) ** 2).mean()
+    aux = {"d_loss": d_fake - d_real + gp_weight * gp, "wasserstein_distance": d_real - d_fake,
+           "gradient_penalty": gp, "d_real_mean": d_real, "d_fake_mean": d_fake}
+    return grads, aux
+
+
+def _numpy_inputs(s):
+    noisy, clean = torch.from_numpy(s["noisy"]), torch.from_numpy(s["clean"])
+    with torch.no_grad():
+        fake = s["tg"](noisy).numpy().astype(np.float64)
+    params = {n: p.detach().numpy().astype(np.float64) for n, p in s["tc"].named_parameters()}
+    return params, s["clean"].astype(np.float64), fake, s["noisy"].astype(np.float64), \
+        s["eps"].astype(np.float64)
+
+
+@pytest.mark.parametrize("b", [1, 40])
+def test_conv_form_chain_matches_jax_grad(b):
+    s = _setup(b, seed=6)
+    batch = {"noisy": s["noisy"], "clean": s["clean"]}
+    (_, ref_aux), ref_grads = jax.value_and_grad(j_critic_loss_fn, has_aux=True)(
+        s["pd"], s["pg"], s["jg"].apply, s["jc"].apply, batch, s["k_gp"], JLossConfig())
+    grads, aux = conv_form_grads(*_numpy_inputs(s), 10.0)
+    _compare({n: torch.from_numpy(g) for n, g in grads.items()}, aux, ref_grads, ref_aux)
+
+
+@pytest.mark.parametrize("b", [1, 40])
+def test_critic_grad_matches_conv_form_chain(b):
+    """The wrapper's CPU path (the packed dense version) against the
+    kernel's tap-by-tap chain, B = 1 included."""
+    s = _setup(b, seed=7)
+    grads, aux = _port_grads(s)
+    ref, ref_aux = conv_form_grads(*_numpy_inputs(s), 10.0)
+    assert list(grads) == [n for n, _ in s["tc"].named_parameters()]
+    for n, r in ref.items():
+        np.testing.assert_allclose(grads[n].numpy(), r, err_msg=n, **TOL)
+    for n in METRICS:
+        np.testing.assert_allclose(float(aux[n]), ref_aux[n], err_msg=n, **TOL)
+
+
+@pytest.mark.parametrize("b", [1, 5])
+def test_critic_grad_matches_jax_grad_at_small_batches(b):
+    s = _setup(b, seed=8)
+    batch = {"noisy": s["noisy"], "clean": s["clean"]}
+    (_, ref_aux), ref_grads = jax.value_and_grad(j_critic_loss_fn, has_aux=True)(
+        s["pd"], s["pg"], s["jg"].apply, s["jc"].apply, batch, s["k_gp"], JLossConfig())
+    _compare(*_port_grads(s), ref_grads, ref_aux)
+
+
+def test_kernel_output_buffer_layout():
+    """The kernel's one output buffer splits into the parameters' gradients in
+    ``named_parameters()`` order, then the five metrics, as views."""
+    critic = MiniDiscriminator()
+    out = torch.arange(526, dtype=torch.float32)
+    grads, aux = ck._split(out)
+    off = 0
+    for (name, p), (gname, g) in zip(critic.named_parameters(), grads.items()):
+        assert gname == name and g.shape == p.shape and g._base is out
+        assert torch.equal(g.reshape(-1), torch.arange(off, off + p.numel(), dtype=torch.float32))
+        off += p.numel()
+    assert off == 521 and tuple(aux) == METRICS
+    assert [float(v) for v in aux.values()] == [521.0, 522.0, 523.0, 524.0, 525.0]

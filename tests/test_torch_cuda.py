@@ -7,14 +7,16 @@ no JAX, so it also runs where JAX is not installed:
 
 (``--noconftest`` because ``tests/conftest.py`` sets JAX up.)
 
-Tolerances: the datagen kernel rtol 1e-5, atol 1e-6 (the same float32
-arithmetic; only fused multiply-adds round differently). The critic-gradient
-kernel rtol 1e-4, atol 1e-4 of each tensor's largest entry: it sums the batch
-in another order.
+Tolerances: the datagen kernel rtol 1e-5, atol 1e-6 at every frame length
+(the same float32 arithmetic; fused multiply-adds round differently, and the
+phase scan and the frame reductions sum in another order). The
+critic-gradient kernel rtol 1e-4, atol 1e-4 of each tensor's largest entry:
+it sums the batch in another order.
 """
 
 import copy
 
+import numpy as np
 import pytest
 import torch
 
@@ -55,6 +57,22 @@ def test_datagen_kernel_matches_plain_version(cuda, b, nonlinear):
         torch.testing.assert_close(got[k], ref[k], rtol=1e-5, atol=1e-6)
 
 
+@pytest.mark.parametrize("nonlinear", [False, True])
+@pytest.mark.parametrize("L", [2, 4, 8, 32, 64, 128, 384, 1024])
+def test_datagen_kernel_matches_plain_version_at_length(cuda, L, nonlinear):
+    b = 1000 if L <= 128 else 64
+    draws = sdg.make_draws(torch.Generator(device=cuda).manual_seed(L), b, L)
+    cfg = sdg.DatagenConfig(frame_length=L, nonlinear=nonlinear,
+                            impairments=ImpairmentConfig(pa_saturation=0.8))
+    got = dk.synthetic_batch_from_draws(draws, cfg)
+    ref = dk.synthetic_batch_plain(draws, cfg)
+    for k in ref:
+        torch.testing.assert_close(got[k], ref[k], rtol=1e-5, atol=1e-6)
+    out = dk.synthetic_batch(torch.Generator(device=cuda).manual_seed(9), b, cfg)
+    assert all(bool(torch.isfinite(v).all()) for v in out.values())
+    assert float(out["noisy"].abs().max()) <= 1.0 and float(out["clean"].abs().max()) <= 1.0
+
+
 def test_datagen_kernel_statistics(cuda):
     b = 1 << 18
     out = dk.synthetic_batch(torch.Generator(device=cuda).manual_seed(3), b, sdg.DatagenConfig())
@@ -67,40 +85,76 @@ def test_datagen_kernel_statistics(cuda):
     assert abs(float((p_noise / p_clean / 10 ** (-snr / 10)).mean()) - 1.0) < 0.01
 
 
-@pytest.mark.parametrize("b", [64, 1000, 65536])
-def test_critic_kernel_matches_plain_version(cuda, b):
-    gen = torch.Generator(device=cuda).manual_seed(3)
-    critic = MiniDiscriminator().to(cuda)
-    h0r = torch.randn(b, 64, generator=gen, device=cuda)
-    h0f = torch.randn(b, 64, generator=gen, device=cuda)
-    eps = torch.rand(b, generator=gen, device=cuda)
-    mats = ck.critic_dense_mats(critic)
-    before = ck.launches
-    got = ck.critic_grad_dense(h0r, h0f, eps, mats, 10.0)
-    assert ck.launches == before + 1
-    ref = ck.critic_grad_plain(h0r, h0f, eps, mats, 10.0)
-    for k, r in ref.items():
-        _critic_close(got[k], r)
+def test_box_muller_is_finite_at_the_extreme_uniforms(cuda):
+    """The kernel's Box-Muller against its float64 version at chosen random
+    words. At the top uniform level, 1 - 2^-24, |log2 u| is below the
+    hardware log2's absolute error, so the radius (3.5e-4) may come out 0
+    but never NaN; atol 5e-4 covers that error near u = 1."""
+    words = [0xFFFFFFFF, 0xFFFFFE00, 0xFFFFFC00, 0x80000000, 0x000001FF, 0]
+    pairs = [(a, b) for a in words for b in words]
+    pairs += np.random.default_rng(0).integers(0, 2 ** 32, (4096, 2)).tolist()
+    bits = torch.from_numpy(np.array(pairs, dtype=np.uint32).view(np.int32))
+    got = dk.box_muller(bits.to(cuda)).cpu()
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(got, dk.box_muller_plain(bits), rtol=1e-5, atol=5e-4)
 
 
-def test_critic_kernel_matches_autograd(cuda):
-    b = 1000
-    gen = torch.Generator(device=cuda).manual_seed(4)
-    critic, generator = MiniDiscriminator().to(cuda), MiniGenerator().to(cuda)
+def _critic_inputs(cuda, b, seed):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        critic, generator = MiniDiscriminator().to(cuda), MiniGenerator().to(cuda)
     clean = torch.randn(b, 16, 2, generator=gen, device=cuda)
     noisy = clean + 0.3 * torch.randn(b, 16, 2, generator=gen, device=cuda)
-    eps = torch.rand(b, generator=gen, device=cuda)
+    alpha = torch.rand(b, generator=gen, device=cuda)
     with torch.no_grad():
-        fake = generator(noisy)
-    grads, aux = ck.critic_grad(critic, ck.pack_h0(clean, noisy), ck.pack_h0(fake, noisy),
-                                eps, 10.0)
-    loss, ref_aux = critic_loss_fn(critic, generator, {"noisy": noisy, "clean": clean}, eps,
+        fake = generator(noisy)   # strided: the generator's output is a transposed view
+    return critic, generator, clean, fake, noisy, alpha
+
+
+@pytest.mark.parametrize("b", [1, 64, 1000, 65536])
+def test_critic_kernel_matches_plain_version(cuda, b):
+    critic, _, clean, fake, noisy, alpha = _critic_inputs(cuda, b, 3)
+    before = ck.launches
+    grads, aux = ck.critic_grad(critic, clean, fake, noisy, alpha, 10.0)
+    assert ck.launches == before + 1
+    ref, ref_aux = ck.critic_grad_packed(critic, clean, fake, noisy, alpha, 10.0)
+    for name, r in ref.items():
+        _critic_close(grads[name], r)
+    for name, r in ref_aux.items():
+        torch.testing.assert_close(aux[name], r, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.parametrize("b", [1, 64, 1000, 65536])
+def test_critic_kernel_matches_autograd(cuda, b):
+    critic, generator, clean, fake, noisy, alpha = _critic_inputs(cuda, b, 4)
+    grads, aux = ck.critic_grad(critic, clean, fake, noisy, alpha, 10.0)
+    loss, ref_aux = critic_loss_fn(critic, generator, {"noisy": noisy, "clean": clean}, alpha,
                                    LossConfig())
     ref = torch.autograd.grad(loss, list(critic.parameters()))
     for (name, _), r in zip(critic.named_parameters(), ref):
         _critic_close(grads[name], r)
     for name, r in ref_aux.items():
         torch.testing.assert_close(aux[name], r, rtol=1e-4, atol=1e-5)
+
+
+def test_kernels_are_deterministic(cuda):
+    """Two calls on the same inputs give bit-identical outputs."""
+    critic, _, clean, fake, noisy, alpha = _critic_inputs(cuda, 65536, 6)
+    one, one_aux = ck.critic_grad(critic, clean, fake, noisy, alpha, 10.0)
+    two, two_aux = ck.critic_grad(critic, clean, fake, noisy, alpha, 10.0)
+    for name in one:
+        assert torch.equal(one[name], two[name]), name
+    for name in one_aux:
+        assert torch.equal(one_aux[name], two_aux[name]), name
+    for L in (16, 1024):
+        cfg = sdg.DatagenConfig(frame_length=L, nonlinear=True)
+        draws = sdg.make_draws(torch.Generator(device=cuda).manual_seed(7), 256, L)
+        a, b = dk.synthetic_batch_from_draws(draws, cfg), dk.synthetic_batch_from_draws(draws, cfg)
+        c = dk.synthetic_batch(torch.Generator(device=cuda).manual_seed(8), 4096, cfg)
+        d = dk.synthetic_batch(torch.Generator(device=cuda).manual_seed(8), 4096, cfg)
+        for k in a:
+            assert torch.equal(a[k], b[k]) and torch.equal(c[k], d[k]), (L, k)
 
 
 def test_kernel_step_matches_plain_step(cuda):

@@ -16,7 +16,7 @@ import pytest
 import torch
 from jax.experimental.pallas import tpu as pltpu
 
-from ofdmgan_tpu.ops.pallas_datagen import synthetic_batch_pallas
+from ofdmgan_tpu.ops.pallas_datagen import _pack, synthetic_batch_pallas
 from ofdmgan_tpu_torch.ops import datagen_kernel as dk
 from ofdmgan_tpu_torch.signal.channel import ChannelConfig
 from ofdmgan_tpu_torch.signal.datagen import DatagenConfig, make_draws
@@ -49,6 +49,44 @@ def test_plain_version_matches_the_interpreted_tpu_kernel(nonlinear):
                                    err_msg=k)
 
 
+@pytest.mark.parametrize("nonlinear", [False, True])
+@pytest.mark.parametrize("L,b", [(16, 32), (64, 16), (128, 8), (1024, 4)])
+def test_plain_version_matches_the_interpreted_tpu_kernel_at_length(L, b, nonlinear):
+    """Every frame-length regime of the TPU kernel: packed (16, 64), one
+    frame per row (128) and the full U-Net's 1024 samples."""
+    with pltpu.force_tpu_interpret_mode():
+        ref = synthetic_batch_pallas(jax.random.PRNGKey(0), b, 0.0, 30.0, L,
+                                     nonlinear=nonlinear, pa_saturation=0.8, tile_rows=8)
+    cfg = DatagenConfig(frame_length=L, nonlinear=nonlinear,
+                        impairments=ImpairmentConfig(pa_saturation=0.8))
+    got = dk.synthetic_batch_plain(interpreter_draws(b, L), cfg)
+    for k in ("noisy", "clean", "snr"):
+        np.testing.assert_allclose(got[k].numpy(), np.asarray(ref[k]), rtol=1e-5, atol=1e-6,
+                                   err_msg=k)
+
+
+def _pack_accepts(L):
+    try:
+        _pack(L)
+        return True
+    except ValueError:
+        return False
+
+
+def test_check_config_takes_the_lengths_of_the_tpu_kernel():
+    """Every L from 2 to 1024 that the TPU kernel's ``_pack`` takes, and no
+    other; L = 1 (a one-sample frame) and lengths past 1024 raise too."""
+    for L in range(1, 2049):
+        cfg = DatagenConfig(frame_length=L)
+        if 2 <= L <= dk.MAX_LENGTH and _pack_accepts(L):
+            dk.check_config(cfg)
+        else:
+            with pytest.raises(ValueError):
+                dk.check_config(cfg)
+    assert [L for L in range(2, 1025) if dk.supports_length(L)] == \
+        [2, 4, 8, 16, 32, 64, 128, 256, 384, 512, 640, 768, 896, 1024]
+
+
 def test_plain_version_statistics_from_its_own_generator():
     gen = torch.Generator().manual_seed(0)
     b = 16384
@@ -62,6 +100,26 @@ def test_plain_version_statistics_from_its_own_generator():
     ratio = (p_noise / p_clean / 10 ** (-snr / 10)).mean()
     assert abs(float(ratio) - 1.0) < 0.02                   # std 0.002
     assert float(out["noisy"].abs().max()) <= 1.0 + 1e-6
+
+
+def test_box_muller_plain_matches_the_tpu_kernels_arithmetic():
+    """The plain Box-Muller, which the CUDA test holds the kernel's against,
+    against the TPU kernel's ``_uniform01``/``_normals`` arithmetic in JAX on
+    the same random words, the extreme words included. rtol 1e-5, atol 4e-6:
+    JAX rounds the angle 2 pi u to float32 (up to 4.7e-7 rad at u near 1),
+    times a radius of at most 5.8."""
+    words = [0xFFFFFFFF, 0xFFFFFE00, 0x80000000, 0x000001FF, 0]
+    pairs = [(a, b) for a in words for b in words]
+    pairs += np.random.default_rng(1).integers(0, 2 ** 32, (256, 2)).tolist()
+    bits = np.array(pairs, dtype=np.uint32).view(np.int32)
+    u = (jax.lax.shift_right_logical(jnp.asarray(bits), 9).astype(jnp.float32)
+         * (1.0 / (1 << 23)) + (0.5 / (1 << 23)))
+    r = jnp.sqrt(-2.0 * jnp.log(u[:, 0]))
+    ang = jnp.float32(2.0 * np.pi) * u[:, 1]
+    ref = np.stack([np.asarray(r * jnp.cos(ang)), np.asarray(r * jnp.sin(ang))], axis=1)
+    got = dk.box_muller(torch.from_numpy(bits)).numpy()
+    assert got[0, 0] == pytest.approx(np.sqrt(-2.0 * np.log1p(-2.0 ** -24)), rel=1e-6)
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=4e-6)
 
 
 def test_cpu_wrapper_takes_the_plain_version():
