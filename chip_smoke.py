@@ -4,7 +4,12 @@
 Builds the port's CUDA kernels from ``ofdmgan_tpu_torch/csrc``, holds each
 against its plain PyTorch version on the card, trains the mini CWGAN-GP for
 two short epochs through both kernels with ``Trainer``, and checks that the
-kernel path and the plain path take the same step. Every phase prints one
+kernel path and the plain path take the same step. Phase ``train_scope``
+then trains a configuration outside the datagen kernel's scope (multipath
+channel, every default impairment, an EMA, a checkpoint each epoch) and
+checks that it takes the FFT datagen and the critic kernel, that a trainer
+resumed from its checkpoint takes the same step, and that an L = 32 Rician
+step takes neither kernel. Every phase prints one
 JSON line with its wall seconds as it ends. Any failed check raises, and the
 script exits non-zero. The last lines are the kernel table, the card's name
 and power limit, and the result line.
@@ -29,6 +34,7 @@ events; at B = 64 that would time the host's call rate, not the device).
 from __future__ import annotations
 
 import copy
+import dataclasses
 import json
 import math
 import statistics
@@ -48,6 +54,9 @@ CRITIC_BATCHES = (1, MAIN_B, 1000, 65536)      # 1000: ragged against the 4-warp
 CRITIC_TIMED = (MAIN_B, 65536)
 CRITIC_PARAMS = 521         # the mini critic's parameters, one gradient each
 STEP_RTOL = 1e-3            # kernel vs plain outer step, of each tensor's largest update
+RESUME_RTOL = 1e-6          # resumed vs uninterrupted step, of each tensor's largest update
+TRAIN_LOG_KEYS = {"train/d_loss", "train/g_loss", "train/wasserstein", "train/rec_loss",
+                  "train/gp", "val/rec_loss", "val/mse"}   # the reference's log keys
 
 
 def log(phase: str, t0: float, **fields) -> None:
@@ -153,6 +162,110 @@ def critic_bound_ms(b: int) -> tuple[float, str]:
     t_bytes = (b * (3 * 32 + 1) + 2 * CRITIC_PARAMS + 5) * 4 / HBM_BYTES_PER_S * 1e3
     t_ops = b * 2 * critic_macs_per_frame() / FP32_FLOPS_PER_S * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def updates_agree(start: dict, a: dict, b: dict, rtol: float, what: str) -> tuple:
+    """(largest difference, largest difference over the tensor's largest
+    update) of two updates from ``start``, per parameter tensor; raises where
+    a difference passes ``rtol`` of that tensor's largest update (``b``'s)."""
+    worst_abs, worst_rel = 0.0, 0.0
+    for name, p0 in start.items():
+        upd_a, upd_b = (a[name] - p0).detach(), (b[name] - p0).detach()
+        diff, size = float((upd_a - upd_b).abs().max()), float(upd_b.abs().max())
+        if not diff <= rtol * size + 1e-9:   # written so that a NaN fails
+            raise AssertionError(f"{what} differ on {name}: {diff:.3e} against a largest "
+                                 f"update of {size:.3e} (limit {rtol} of it)")
+        worst_abs = max(worst_abs, diff)
+        worst_rel = max(worst_rel, diff / size if size else 0.0)
+    return worst_abs, worst_rel
+
+
+def all_params(model) -> dict:
+    """Every parameter of a trainer's or a step's generator and critic."""
+    return {**{f"generator.{n}": p for n, p in model.generator.named_parameters()},
+            **{f"critic.{n}": p for n, p in model.critic.named_parameters()}}
+
+
+def train_scope(dev, gen, steps: int) -> dict:
+    """Phase ``train_scope``: the mini recipe at its full width (batch 64,
+    n_critic 5) outside the datagen kernel's scope, then one step outside
+    both kernels' scope. Returns the phase line's fields."""
+    from ofdmgan_tpu_torch.config import Config
+    from ofdmgan_tpu_torch.ops import critic_kernel as ck, datagen_kernel as dk
+    from ofdmgan_tpu_torch.signal import datagen as sdg
+    from ofdmgan_tpu_torch.training.trainer import Trainer
+
+    out = {}
+    # a fading, fully impaired run: multipath, Rapp PA -> IQ -> phase noise,
+    # an EMA, a checkpoint every epoch
+    base = Config(checkpoint_dir="build/chip_smoke/scope/checkpoints",
+                  log_dir="build/chip_smoke/scope/logs")
+    cfg = dataclasses.replace(base, channel_type="multipath", training=dataclasses.replace(
+        base.training, checkpoint_interval=1))
+    tr = cfg.training
+    kw = dict(nonlinear=True, samples_per_epoch=steps * tr.batch_size, val_samples=256, seed=0,
+              device="cuda", ema_decay=0.999)
+    trainer = Trainer(cfg, **kw)
+    routes = {"datagen": trainer.step.datagen_route, "critic": trainer.step.critic_route}
+    if routes != {"datagen": "plain", "critic": "kernel"}:
+        raise AssertionError(f"the multipath run took the routes {routes}")
+    dk.launches = 0
+    ck.launches = 0
+    t_train = time.time()
+    history = trainer.train(epochs=2, experiment_name="chip_smoke_scope")
+    torch.cuda.synchronize()
+    train_s = time.time() - t_train
+    launches = {"datagen": dk.launches, "critic_grad": ck.launches}
+    want = {"datagen": 0, "critic_grad": tr.n_critic * 2 * steps}
+    if launches != want:
+        raise AssertionError(f"the multipath run launched {launches}, not {want}")
+    keys = TRAIN_LOG_KEYS | {"val/rec_loss_ema", "val/mse_ema"}
+    if (len(history) != 2 or any(set(rec) != keys for rec in history)
+            or not all(math.isfinite(v) for rec in history for v in rec.values())):
+        raise AssertionError(f"non-finite or missing training metrics: {history}")
+
+    # resume from the last epoch's checkpoint: the same step on the same draws
+    resumed = Trainer(cfg, **{**kw, "seed": 1})
+    resumed.load_checkpoint(f"{cfg.checkpoint_dir}/checkpoint_epoch_2")
+    if (resumed.current_epoch, resumed.global_step) != (1, 2 * steps):
+        raise AssertionError("the checkpoint did not restore the epoch and step: "
+                             f"{resumed.current_epoch}, {resumed.global_step}")
+    draws = sdg.make_draws(gen, tr.batch_size, cfg.frame_length, trainer.dg_cfg.channel)
+    batch = sdg.synthetic_batch_from_draws(draws, trainer.dg_cfg)
+    alphas = [torch.rand(tr.batch_size, generator=gen, device=dev) for _ in range(tr.n_critic)]
+    start = {n: p.detach().clone() for n, p in all_params(trainer).items()}
+    for name, p in all_params(resumed).items():
+        if not torch.equal(p, start[name]):
+            raise AssertionError(f"the resumed {name} differs from the saved one")
+    trainer.step.run(batch, alphas)
+    resumed.step.run(batch, alphas)
+    torch.cuda.synchronize()
+    _, resume_rel = updates_agree(start, all_params(resumed), all_params(trainer), RESUME_RTOL,
+                                  "resumed and uninterrupted steps")
+    out["fading"] = {"routes": routes, "launches": launches, "train_s": round(train_s, 3),
+                     "history": history, "resume_step_max_rel_diff": resume_rel}
+
+    # one step at L = 32 over a Rician channel: outside both kernels' scope
+    cfg32 = dataclasses.replace(base, frame_length=32, channel_type="rician")
+    trainer32 = Trainer(cfg32, samples_per_epoch=tr.batch_size, val_samples=64, seed=0,
+                        device="cuda")
+    routes = {"datagen": trainer32.step.datagen_route, "critic": trainer32.step.critic_route}
+    if routes != {"datagen": "plain", "critic": "plain"}:
+        raise AssertionError(f"the L = 32 Rician step took the routes {routes}")
+    dk.launches = 0
+    ck.launches = 0
+    t_train = time.time()
+    metrics = {k: float(v) for k, v in trainer32.step(trainer32.rng).items()}
+    torch.cuda.synchronize()
+    train_s = time.time() - t_train
+    launches = {"datagen": dk.launches, "critic_grad": ck.launches}
+    if launches != {"datagen": 0, "critic_grad": 0}:
+        raise AssertionError(f"the L = 32 step launched {launches}")
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"non-finite L = 32 step metrics: {metrics}")
+    out["l32_rician"] = {"routes": routes, "launches": launches, "train_s": round(train_s, 3),
+                         "metrics": metrics}
+    return out
 
 
 def main() -> int:
@@ -323,6 +436,9 @@ def main() -> int:
         raise AssertionError(f"the training run did not go through both kernels: {launches}")
     if not all(math.isfinite(v) for rec in history for v in rec.values()) or len(history) != 2:
         raise AssertionError(f"non-finite or missing training metrics: {history}")
+    routes = {"datagen": trainer.step.datagen_route, "critic": trainer.step.critic_route}
+    if routes != {"datagen": "kernel", "critic": "kernel"}:
+        raise AssertionError(f"the default recipe did not route both kernels: {routes}")
 
     # one outer step from the trained state through the kernel path and the
     # plain path (FFT datagen, autograd critic), on the same draws and
@@ -342,31 +458,22 @@ def main() -> int:
     draws = sdg.make_draws(gen, MAIN_B, 16)
     alphas = [torch.rand(MAIN_B, generator=gen, device=dev) for _ in range(5)]
     step_k, step_p = clone_step(False), clone_step(True)
-    start = {n: p.detach().clone() for n, p in step_k.generator.named_parameters()}
-    start.update({f"critic.{n}": p.detach().clone() for n, p in step_k.critic.named_parameters()})
+    start = {n: p.detach().clone() for n, p in all_params(step_k).items()}
     m_k = step_k.run(dk.synthetic_batch_from_draws(draws, trainer.dg_cfg), alphas)
     m_p = step_p.run(sdg.synthetic_batch_from_draws(draws, trainer.dg_cfg), alphas)
-
-    def after(step):
-        return {**dict(step.generator.named_parameters()),
-                **{f"critic.{n}": p for n, p in step.critic.named_parameters()}}
-
-    step_diff, step_rel = 0.0, 0.0
-    after_k, after_p = after(step_k), after(step_p)
-    for name, p0 in start.items():
-        upd_k, upd_p = (after_k[name] - p0).detach(), (after_p[name] - p0).detach()
-        diff, size = float((upd_k - upd_p).abs().max()), float(upd_p.abs().max())
-        if diff > STEP_RTOL * size + 1e-9:
-            raise AssertionError(f"kernel and plain steps differ on {name}: {diff:.3e} against "
-                                 f"a largest update of {size:.3e} (limit {STEP_RTOL} of it)")
-        step_diff = max(step_diff, diff)
-        step_rel = max(step_rel, diff / size if size else 0.0)
-    log("train", t, launches=launches, train_s=round(train_s, 3), history=history,
+    step_diff, step_rel = updates_agree(start, all_params(step_k), all_params(step_p),
+                                        STEP_RTOL, "kernel and plain steps")
+    log("train", t, launches=launches, routes=routes, train_s=round(train_s, 3), history=history,
         step_update_max_abs_diff=step_diff, step_update_max_rel_diff=step_rel,
         step_metrics_kernel={k: float(v) for k, v in m_k.items()},
         step_metrics_plain={k: float(v) for k, v in m_p.items()})
 
-    # ---- 5. report
+    # ---- 5. configurations outside the datagen kernel's scope
+    t = time.time()
+    scope = train_scope(dev, gen, steps)
+    log("train_scope", t, **scope)
+
+    # ---- 6. report
     db, dby = datagen_bound_ms(MAIN_B, 16)
     cb, cby = critic_bound_ms(MAIN_B)
     dg_main, cr_main = dg_times[f"L16_B{MAIN_B}"], cr_times[MAIN_B]

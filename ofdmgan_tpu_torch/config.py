@@ -1,9 +1,12 @@
 """Run configuration with the defaults of ``config/config.yaml``.
 
-Counterpart of ``ofdmgan_tpu/config.py:23-56``. The reference reads one YAML
-file; here the defaults of that file are dataclasses, so a run needs no file
-and no PyYAML. ``load_config(path)`` reads a YAML file with the reference's
-keys and imports ``yaml`` only then.
+Counterpart of ``ofdmgan_tpu/config.py:23-75``. The reference reads one YAML
+file, ``config/config.yaml`` unless told otherwise; here the defaults of that
+file are dataclasses, so a run needs no file and no PyYAML, and ``Config()``
+equals that file. ``load_config(path)`` reads a YAML file with the
+reference's keys and imports ``yaml`` only then; a key the file lacks takes
+the reference's own default (``training_params_from`` and its siblings),
+which for the training section differs from the YAML's value.
 """
 
 from __future__ import annotations
@@ -50,9 +53,19 @@ class TrainingSection:
     save_best: bool = True
 
 
+# the reference's defaults for training keys a file lacks
+# (ofdmgan_tpu/config.py:56-75); every other default equals the YAML's
+MISSING_KEY_TRAINING = TrainingSection(batch_size=32, epochs=200, lr_generator=1e-4,
+                                       lr_discriminator=1e-4, scheduler_step=50,
+                                       checkpoint_interval=10)
+
+
 @dataclasses.dataclass(frozen=True)
 class Config:
     frame_length: int = 16
+    modulation: str = "QPSK"          # the image datasets' OFDM codec
+    num_subcarriers: int = 8
+    cp_length: int = 2
     snr_range: Tuple[float, float] = (0.0, 30.0)
     channel_type: str = "awgn"
     generator: GeneratorSection = GeneratorSection()
@@ -64,16 +77,20 @@ class Config:
 
 
 def config_from_dict(d: Dict[str, Any]) -> Config:
-    """Build a ``Config`` from a dict with the reference YAML's nesting;
-    missing keys keep the defaults."""
+    """Build a ``Config`` from a dict with the reference YAML's nesting; a
+    missing key takes the reference's default."""
     t = d.get("training", {})
     opt, loss, sched = t.get("optimizer", {}), t.get("loss", {}), t.get("scheduler", {})
     model = d.get("model", {})
     g, dc = model.get("generator", {}), model.get("discriminator", {})
     base = Config()
-    tr = base.training
+    tr = MISSING_KEY_TRAINING
+    ofdm = d.get("ofdm", {})
     return Config(
-        frame_length=int(d.get("ofdm", {}).get("frame_length", base.frame_length)),
+        frame_length=int(ofdm.get("frame_length", base.frame_length)),
+        modulation=str(ofdm.get("modulation", base.modulation)),
+        num_subcarriers=int(ofdm.get("num_subcarriers", base.num_subcarriers)),
+        cp_length=int(ofdm.get("cp_length", base.cp_length)),
         snr_range=tuple(float(v) for v in d.get("channel", {}).get("snr_range", base.snr_range)),
         channel_type=str(d.get("channel", {}).get("channel_type", base.channel_type)).lower(),
         generator=GeneratorSection(

@@ -131,9 +131,21 @@ def _library():
     return lib
 
 
-def _check_critic(critic: nn.Module) -> None:
+def covers(critic: nn.Module, frame_length: int) -> bool:
+    """Whether the kernel computes ``critic``'s loss gradient on frames of
+    ``frame_length`` samples: the mini critic's shapes (``PARAM_SHAPES``) at
+    16 samples."""
     shapes = tuple((n, tuple(p.shape)) for n, p in critic.named_parameters())
-    if shapes != PARAM_SHAPES:
+    return shapes == PARAM_SHAPES and frame_length == FRAME[0]
+
+
+def check_inputs(critic: nn.Module, *frames: torch.Tensor) -> None:
+    """Raise unless the kernel covers ``critic`` on ``frames`` ``[B, L, 2]``."""
+    for x in frames:
+        if x.dim() != 3 or tuple(x.shape[1:]) != FRAME:
+            raise ValueError(f"the critic-gradient kernel takes frames of shape [B, {FRAME[0]}, "
+                             f"{FRAME[1]}], not {list(x.shape)}")
+    if not covers(critic, FRAME[0]):
         raise ValueError("the critic-gradient kernel covers the mini 16-sample critic")
 
 
@@ -153,7 +165,7 @@ def prepare(critic, clean, fake, noisy, alpha, gp_weight: float, slope: float = 
     (both stages) once and returns a CUDA error code; ``critic_grad`` does
     this and counts it, ``chip_smoke.py`` repeats it to time the kernel alone
     at large batches."""
-    _check_critic(critic)
+    check_inputs(critic, clean, fake, noisy)
     b, dev = clean.shape[0], clean.device
     for name, x in (("clean", clean), ("fake", fake), ("noisy", noisy)):
         if x.device != dev or x.dtype != torch.float32 or tuple(x.shape) != (b, *FRAME):
@@ -212,6 +224,7 @@ def critic_grad_packed(critic: nn.Module, clean: torch.Tensor, fake: torch.Tenso
                        slope: float = 0.2):
     """The kernel's plain version: the packed rows through the dense sums of
     ``critic_grad_plain``, mapped back to the parameters, and the metrics."""
+    check_inputs(critic, clean, fake, noisy)
     mats = critic_dense_mats(critic)
     dense = critic_grad_plain(pack_h0(clean, noisy), pack_h0(fake, noisy), alpha, mats,
                               gp_weight, slope)

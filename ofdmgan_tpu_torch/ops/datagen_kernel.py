@@ -34,12 +34,23 @@ DRAW_KEYS = ("zr", "zi", "pn", "nr", "ni")
 launches = 0  # kernel launches since the caller last set it to 0
 
 
-def check_config(cfg: DatagenConfig) -> None:
-    """Raise unless the kernel covers ``cfg`` (as ``wgan_gp.py:282-293``)."""
+def _covers_recipe(cfg: DatagenConfig) -> bool:
     imp = cfg.impairments
-    if cfg.channel.kind != "awgn" or (cfg.nonlinear and (
-            imp.pa_model != "rapp" or not imp.pa_enabled or not imp.iq_enabled
-            or not imp.phase_noise_enabled or imp.dc_enabled or imp.cfo_enabled)):
+    return cfg.channel.kind == "awgn" and not (cfg.nonlinear and (
+        imp.pa_model != "rapp" or not imp.pa_enabled or not imp.iq_enabled
+        or not imp.phase_noise_enabled or imp.dc_enabled or imp.cfo_enabled))
+
+
+def covers(cfg: DatagenConfig) -> bool:
+    """Whether the kernel computes ``cfg``'s batches: the AWGN channel, linear
+    or with the default nonlinear chain (the test of ``wgan_gp.py:282-293``),
+    at a length ``supports_length`` takes."""
+    return _covers_recipe(cfg) and supports_length(cfg.frame_length)
+
+
+def check_config(cfg: DatagenConfig) -> None:
+    """Raise unless the kernel covers ``cfg`` (see ``covers``)."""
+    if not _covers_recipe(cfg):
         raise ValueError("the datagen kernel covers the AWGN channel with the "
                          "default nonlinear chain (Rapp PA + IQ + phase noise)")
     if not supports_length(cfg.frame_length):

@@ -1,1 +1,2 @@
-"""Synthetic OFDM frames: the spectrum, impairments, channel and datagen."""
+"""Signal layer: QAM and OFDM codecs, channels, RF impairments, the
+synthetic datagen and the image-backed datasets."""

@@ -1,21 +1,36 @@
-"""The minimal trainer: epochs, validation, the NaN policy, JSONL metrics and
-``.npz`` generator champions.
+"""The trainer: epochs, validation, the NaN policy, JSONL metrics, full-state
+checkpoints with resume and warm start, an EMA of the generator, the
+profiling hook and the image datasets.
 
 Counterpart of ``ofdmgan_tpu/training/trainer.py:52-674``. An epoch is
-``samples_per_epoch // batch_size`` outer steps. Champions are saved in the
-JAX package's ``.npz`` format (flax layout, ``/``-joined keys), so either
-package can load them. Not ported yet: Orbax-style resume, EMA,
-``init_from``, image datasets, data/pipeline parallelism, profiling and the
-post-training FPGA export.
+``samples_per_epoch // batch_size`` outer steps. Checkpoints keep the
+reference's names: ``checkpoint_epoch_{N}/``, ``best_model/`` (a copy of the
+best) and ``final_model/``, each with
+
+* ``params_g.npz``, ``params_d.npz`` (and ``ema_params_g.npz`` with an EMA):
+  the parameters in the JAX package's ``.npz`` format (flax layout,
+  ``/``-joined keys), so either package can load them;
+* ``optimizer.pt``: both Adam states and their StepLR positions
+  (``torch.save``);
+* ``trainer_state.json``: ``epoch`` (the index of the epoch just trained,
+  where a resumed run starts again, as the reference's does),
+  ``global_step``, ``best_val_loss`` and ``config``.
+
+The generator alone is also written as ``champion_params_g.npz`` (on each
+new best) and ``final_params_g.npz``. Not ported: data/pipeline parallelism
+and the post-training FPGA export.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
+import json
 import math
+import shutil
 import time
 from pathlib import Path
-from typing import Dict, List, Optional
+from typing import Any, Dict, List, Optional
 
 import torch
 
@@ -29,14 +44,22 @@ from .schedules import make_adam
 from .wgan_gp import TrainStep, make_eval_step
 
 NAN_POLICIES = ("restore_best", "raise", "ignore")
+# the training metrics the reference logs, under its names (trainer.py:636-640)
+TRAIN_LOG_KEYS = {"d_loss": "d_loss", "g_loss": "g_loss", "wasserstein": "wasserstein_distance",
+                  "rec_loss": "rec_loss", "gp": "gradient_penalty"}
 
 
 class Trainer:
     def __init__(self, config: Optional[Config] = None, nonlinear: bool = False,
                  pa_saturation: float = 0.8, samples_per_epoch: Optional[int] = None,
                  val_samples: int = 1_000, seed: int = 0,
-                 device: str | torch.device | None = None):
-        """Runs on the GPU unless ``device`` says otherwise (``"cpu"``)."""
+                 device: str | torch.device | None = None, ema_decay: float = 0.0,
+                 image_dir: Optional[str] = None, image_chunks: bool = False,
+                 samples_per_image: int = 10):
+        """Runs on the GPU unless ``device`` says otherwise (``"cpu"``).
+        ``ema_decay > 0`` keeps an EMA of the generator, updated after every
+        outer step; ``image_dir`` trains on image-derived frames
+        (``image_chunks``: the chunk dataset) instead of synthetic ones."""
         self.device = resolve_device(device)
         self.config = config or Config()
         tr = self.config.training
@@ -58,64 +81,210 @@ class Trainer:
                 conv1_channels=d.conv1_channels, conv2_channels=d.conv2_channels,
                 leaky_slope=d.leaky_slope).to(self.device)
 
-        # StepLR in optimizer updates: G updates once per step, D n_critic times
+        self.image_dataset = self._image_dataset(image_dir, image_chunks, samples_per_image)
+        batch_fn = self.image_dataset.sample_batch if self.image_dataset else None
+        self.step = TrainStep(self.generator, self.critic, None, None, self.dg_cfg,
+                              self.loss_cfg, self.batch_size, batch_fn=batch_fn)
+        self._fresh_optimizers()
+        self._eval = make_eval_step(self.generator, self.dg_cfg, self.batch_size, batch_fn)
+        self.rng = torch.Generator(device=self.device)
+        self.rng.manual_seed(seed + 1)
+
+        self.ema_decay = float(ema_decay)
+        self.ema_generator: Optional[MiniGenerator] = None
+        if self.ema_decay > 0.0:
+            self.ema_generator = copy.deepcopy(self.generator).requires_grad_(False)
+
+        self.nan_policy = "restore_best"
+        self.current_epoch = 0
+        self.global_step = 0
+        self.best_val_loss = math.inf
+        self.logger: Optional[MetricsLogger] = None
+        self._last_best_path: Optional[Path] = None
+
+    def _image_dataset(self, image_dir, image_chunks, samples_per_image):
+        """The image dataset of reference trainer.py:148-180, or None."""
+        if not image_dir:
+            return None
+        from ..signal.image_ofdm import ImageOFDMChunkDataset, ImageOFDMDataset
+
+        snr = (self.dg_cfg.snr_min, self.dg_cfg.snr_max)
+        if image_chunks:
+            ds = ImageOFDMChunkDataset(image_dir, chunk=self.dg_cfg.frame_length,
+                                       snr_range=snr, samples_per_image=samples_per_image,
+                                       device=self.device)
+            print(f"Image CHUNK dataset: {len(ds.image_files)} images, "
+                  f"{ds._chunks.shape[0]} chunks from {image_dir}")
+            return ds
+        c = self.config
+        ds = ImageOFDMDataset(image_dir, frame_length=self.dg_cfg.frame_length,
+                              modulation=c.modulation, n_subcarriers=c.num_subcarriers,
+                              cp_length=c.cp_length, snr_range=snr,
+                              channel_type=self.dg_cfg.channel.kind,
+                              samples_per_image=samples_per_image, device=self.device)
+        print(f"Image dataset: {len(ds.image_files)} images from {image_dir}")
+        return ds
+
+    def _fresh_optimizers(self) -> None:
+        """New Adam states at schedule position 0. StepLR counts optimizer
+        updates: G updates once per step, D n_critic times."""
+        tr = self.config.training
         decay_g = tr.scheduler_step * self.steps_per_epoch
         decay_d = decay_g * max(self.loss_cfg.n_critic, 1)
         self.opt_g = make_adam(self.generator.parameters(), tr.lr_generator, tr.betas,
                                decay_g, tr.scheduler_gamma)
         self.opt_d = make_adam(self.critic.parameters(), tr.lr_discriminator, tr.betas,
                                decay_d, tr.scheduler_gamma)
-        self.step = TrainStep(self.generator, self.critic, self.opt_g, self.opt_d,
-                              self.dg_cfg, self.loss_cfg, self.batch_size)
-        self._eval = make_eval_step(self.generator, self.dg_cfg, self.batch_size)
-        self.rng = torch.Generator(device=self.device)
-        self.rng.manual_seed(seed + 1)
+        self.step.opt_g, self.step.opt_d = self.opt_g, self.opt_d
 
-        self.nan_policy = "restore_best"
-        self.current_epoch = 0
-        self.global_step = 0
-        self.best_val_loss = math.inf
-        self._best_state: Optional[Dict[str, dict]] = None
+    # ------------------------------------------------------------- training
+    @torch.no_grad()
+    def update_ema(self) -> None:
+        """ema = decay * ema + (1 - decay) * generator, per parameter (the
+        reference's per-chunk decay ``decay ** scan_steps`` at one step)."""
+        d = self.ema_decay
+        for e, p in zip(self.ema_generator.parameters(), self.generator.parameters()):
+            e.mul_(d).add_(p, alpha=1.0 - d)
 
     def train_epoch(self) -> Dict[str, float]:
         """Run one epoch; the last step's metrics, read once at the end."""
         metrics: Dict[str, torch.Tensor] = {}
         for _ in range(self.steps_per_epoch):
             metrics = self.step(self.rng)
+            if self.ema_generator is not None:
+                self.update_ema()
         self.global_step += self.steps_per_epoch
         return {k: float(v) for k, v in metrics.items()}
 
     def validate(self) -> Dict[str, float]:
-        totals = {"rec_loss": 0.0, "mse": 0.0}
+        """Mean ``rec_loss``/``mse`` over the validation batches, and with an
+        EMA ``rec_loss_ema``/``mse_ema`` on the same batches."""
+        totals: Dict[str, float] = {}
         for _ in range(self.val_batches):
-            m = self._eval(self.rng)
-            for k in totals:
-                totals[k] += float(m[k])
+            for k, v in self._eval(self.rng, self.ema_generator).items():
+                totals[k] = totals.get(k, 0.0) + float(v)
         return {k: v / self.val_batches for k, v in totals.items()}
 
+    def profile_steps(self, n_steps: int = 2, trace_dir: Optional[str] = None) -> str:
+        """Trace ``n_steps`` outer steps with ``torch.profiler`` into a Chrome
+        trace ``trace.json`` under ``trace_dir`` (default: the run's log
+        directory's ``profile/``); returns the directory."""
+        from torch.profiler import ProfilerActivity, profile
+
+        trace_dir = Path(trace_dir or (self.logger.dir if self.logger
+                                       else Path(self.config.log_dir)) / "profile")
+        trace_dir.mkdir(parents=True, exist_ok=True)
+        activities = [ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities) as prof:
+            for _ in range(n_steps):
+                self.step(self.rng)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+        prof.export_chrome_trace(str(trace_dir / "trace.json"))
+        return str(trace_dir)
+
+    # ---------------------------------------------------------- checkpoints
     def save_champion(self, path: str | Path) -> None:
         """The generator as a JAX-format ``.npz`` champion."""
         save_params_tree(str(path), to_jax_params(self.generator.state_dict()))
 
     def load_champion(self, path: str | Path) -> None:
-        sd = from_jax_params(load_params_tree(str(path)))
-        self.generator.load_state_dict({k: v.to(self.device) for k, v in sd.items()})
+        self._load_module(self.generator, Path(path))
 
+    def save_checkpoint(self, path: str | Path, is_best: bool = False) -> None:
+        """The full state into the directory ``path`` (replaced if present);
+        ``is_best`` also copies it to ``best_model/`` beside it."""
+        path = Path(path)
+        if path.exists():
+            shutil.rmtree(path)
+        path.mkdir(parents=True)
+        save_params_tree(str(path / "params_g.npz"), to_jax_params(self.generator.state_dict()))
+        save_params_tree(str(path / "params_d.npz"), to_jax_params(self.critic.state_dict()))
+        if self.ema_generator is not None:
+            save_params_tree(str(path / "ema_params_g.npz"),
+                             to_jax_params(self.ema_generator.state_dict()))
+        torch.save({"opt_g": self.opt_g.opt.state_dict(), "sched_g": self.opt_g.sched.state_dict(),
+                    "opt_d": self.opt_d.opt.state_dict(), "sched_d": self.opt_d.sched.state_dict()},
+                   path / "optimizer.pt")
+        sidecar = {"epoch": self.current_epoch, "global_step": self.global_step,
+                   "best_val_loss": self.best_val_loss,
+                   "config": dataclasses.asdict(self.config)}
+        (path / "trainer_state.json").write_text(json.dumps(sidecar, indent=2))
+        if is_best:
+            best = path.parent / "best_model"
+            if best.exists():
+                shutil.rmtree(best)
+            shutil.copytree(path, best)
+            self._last_best_path = best
+
+    def _load_module(self, module: torch.nn.Module, path: Path) -> None:
+        sd = from_jax_params(load_params_tree(str(path)))
+        module.load_state_dict({k: v.to(self.device) for k, v in sd.items()})
+
+    def init_params_from(self, path: str | Path) -> None:
+        """Warm start: only the parameters of the checkpoint ``path``, with
+        fresh optimizers at schedule position 0 (reference :553-566)."""
+        path = Path(path)
+        self._load_module(self.generator, path / "params_g.npz")
+        self._load_module(self.critic, path / "params_d.npz")
+        self._fresh_optimizers()
+        if self.ema_generator is not None:
+            self.ema_generator.load_state_dict(self.generator.state_dict())
+
+    def init_generator_params(self, tree: Dict[str, Any]) -> None:
+        """Warm start of the generator alone from a flax parameter tree (a
+        ``.npz`` champion): the critic stays as it is, the optimizers start
+        fresh at schedule position 0 (reference :568-580)."""
+        sd = from_jax_params(tree)
+        self.generator.load_state_dict({k: v.to(self.device) for k, v in sd.items()})
+        self._fresh_optimizers()
+        if self.ema_generator is not None:
+            self.ema_generator.load_state_dict(self.generator.state_dict())
+
+    def load_checkpoint(self, path: str | Path) -> None:
+        """Resume: parameters, Adam moments, schedule positions, epoch,
+        global step and best loss (reference :582-601). Without a saved EMA
+        the EMA starts again from the restored generator."""
+        path = Path(path)
+        self._load_module(self.generator, path / "params_g.npz")
+        self._load_module(self.critic, path / "params_d.npz")
+        # loaded to the host: Adam moves the moments to the parameters' device
+        # and keeps its step counts on the host, as it makes them
+        state = torch.load(path / "optimizer.pt", map_location="cpu")
+        self.opt_g.opt.load_state_dict(state["opt_g"])
+        self.opt_g.sched.load_state_dict(state["sched_g"])
+        self.opt_d.opt.load_state_dict(state["opt_d"])
+        self.opt_d.sched.load_state_dict(state["sched_d"])
+        if self.ema_generator is not None:
+            if (path / "ema_params_g.npz").exists():
+                self._load_module(self.ema_generator, path / "ema_params_g.npz")
+            else:
+                self.ema_generator.load_state_dict(self.generator.state_dict())
+        sidecar = json.loads((path / "trainer_state.json").read_text())
+        self.current_epoch = sidecar["epoch"]
+        self.global_step = sidecar["global_step"]
+        self.best_val_loss = sidecar["best_val_loss"]
+
+    # ----------------------------------------------------------------- loop
     def train(self, epochs: Optional[int] = None,
               experiment_name: Optional[str] = None) -> List[Dict[str, float]]:
-        """Train and return one record of train and val metrics per epoch."""
+        """Train and return one record per epoch of the logged train and val
+        metrics."""
         if self.nan_policy not in NAN_POLICIES:
             raise ValueError(f"nan_policy must be one of {NAN_POLICIES}")
         tr = self.config.training
         epochs = epochs or tr.epochs
-        logger = MetricsLogger(self.config.log_dir, experiment_name)
+        self.logger = MetricsLogger(self.config.log_dir, experiment_name)
         ckpt_dir = Path(self.config.checkpoint_dir)
         ckpt_dir.mkdir(parents=True, exist_ok=True)
         history: List[Dict[str, float]] = []
         print(f"Training for {epochs} epochs | batch {self.batch_size} | "
               f"{self.steps_per_epoch} steps/epoch | n_critic {self.loss_cfg.n_critic} | "
               f"gp {self.loss_cfg.gp_weight} | rec {self.loss_cfg.rec_weight} | "
-              f"device {self.device}", flush=True)
+              f"device {self.device} | datagen {self.step.datagen_route} | "
+              f"critic {self.step.critic_route}", flush=True)
         t0 = time.time()
         try:
             for epoch in range(self.current_epoch, epochs):
@@ -127,30 +296,35 @@ class Trainer:
                         raise FloatingPointError(msg)
                     print(f"FAILURE DETECTED: {msg}", flush=True)
                     if self.nan_policy == "restore_best":
-                        if self._best_state is not None:
-                            self.generator.load_state_dict(self._best_state["generator"])
-                            self.critic.load_state_dict(self._best_state["critic"])
-                            print("Restored the best parameters; stopping.", flush=True)
+                        if self._last_best_path is not None:
+                            print(f"Restoring best checkpoint {self._last_best_path} and "
+                                  "stopping.", flush=True)
+                            self.load_checkpoint(self._last_best_path)
                         else:
-                            print("No best parameters yet; stopping.", flush=True)
+                            print("No best checkpoint yet; stopping.", flush=True)
                         break
                 vm = self.validate()
-                logger.log_scalars("train", tm, self.global_step)
-                logger.log_scalars("val", vm, epoch)
-                history.append({**{f"train/{k}": v for k, v in tm.items()},
+                logged = {k: tm[m] for k, m in TRAIN_LOG_KEYS.items()}
+                self.logger.log_scalars("train", logged, self.global_step)
+                self.logger.log_scalars("val", vm, epoch)
+                history.append({**{f"train/{k}": v for k, v in logged.items()},
                                 **{f"val/{k}": v for k, v in vm.items()}})
+                ema_txt = f" | EMA L1 {vm['rec_loss_ema']:.4f}" if "rec_loss_ema" in vm else ""
                 print(f"Epoch {epoch}: D {tm['d_loss']:.4f} G {tm['g_loss']:.4f} "
                       f"W {tm['wasserstein_distance']:.4f} L1 {tm['rec_loss']:.4f} | "
-                      f"val L1 {vm['rec_loss']:.4f} MSE {vm['mse']:.4f}", flush=True)
-                if (epoch + 1) % tr.checkpoint_interval == 0:
-                    self.save_champion(ckpt_dir / f"params_g_epoch_{epoch + 1}.npz")
-                if tr.save_best and vm["rec_loss"] < self.best_val_loss:
-                    self.best_val_loss = vm["rec_loss"]
+                      f"val L1 {vm['rec_loss']:.4f} MSE {vm['mse']:.4f}{ema_txt}", flush=True)
+                # best-model tracking takes the EMA generator too (the
+                # checkpoint carries both)
+                val_best = min(vm["rec_loss"], vm.get("rec_loss_ema", math.inf))
+                is_best = tr.save_best and val_best < self.best_val_loss
+                if is_best:
+                    self.best_val_loss = val_best
                     self.save_champion(ckpt_dir / "champion_params_g.npz")
-                    self._best_state = {"generator": copy.deepcopy(self.generator.state_dict()),
-                                        "critic": copy.deepcopy(self.critic.state_dict())}
+                if is_best or (epoch + 1) % tr.checkpoint_interval == 0:
+                    self.save_checkpoint(ckpt_dir / f"checkpoint_epoch_{epoch + 1}", is_best)
+            self.save_checkpoint(ckpt_dir / "final_model")
             self.save_champion(ckpt_dir / "final_params_g.npz")
         finally:
-            logger.close()
+            self.logger.close()
         print(f"Training complete in {time.time() - t0:.1f} s", flush=True)
         return history

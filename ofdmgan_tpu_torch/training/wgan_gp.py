@@ -11,20 +11,32 @@ Counterpart of ``ofdmgan_tpu/training/wgan_gp.py:39-479``. Per outer step:
     L_G = -E[D(G(noisy), c)] + rec_weight * L1(G(noisy), clean)
     Adam update of G
 
-The batch comes from ``ops/datagen_kernel`` and each critic update's gradient
-from ``ops/critic_kernel``: the CUDA kernels for tensors on the GPU, their
-plain versions on the CPU (the reference step with ``use_pallas_datagen`` and
-``use_pallas_critic`` on). ``reference=True`` instead draws with the FFT
-datagen of ``signal/datagen`` and takes the critic gradient by autograd (the
-reference step with both off); tests and ``chip_smoke.py`` hold the two
-against each other. ``n_critic == 0`` is the supervised path: no critic
-update, no adversarial term.
+Each kernel takes its part of the step where it covers the configuration,
+as the reference's ``use_pallas_datagen``/``use_pallas_critic`` flags do:
+``TrainStep`` chooses once, at construction, from the configuration alone,
+and exposes the choice as ``datagen_route`` and ``critic_route``
+(``"kernel"`` or ``"plain"``):
+
+* the batch comes from ``ops/datagen_kernel`` when ``datagen_kernel.covers``
+  the ``DatagenConfig`` (AWGN, linear or the default nonlinear chain, a
+  kernel length), else from the FFT datagen ``signal/datagen.synthetic_batch``;
+  a ``batch_fn`` (the image datasets) takes the place of both;
+* each critic update's gradient comes from ``ops/critic_kernel`` when
+  ``critic_kernel.covers`` the critic at the frame length (the mini critic at
+  16 samples), else from ``critic_loss_fn`` and autograd.
+
+A kernel route runs the CUDA kernel for tensors on the GPU and its plain
+version on the CPU; a kernel that fails to build or launch raises, it is
+never replaced by the plain route. ``reference=True`` makes both routes
+plain (the reference step with both flags off); tests and ``chip_smoke.py``
+hold the two against each other. ``n_critic == 0`` is the supervised path:
+no critic update, no adversarial term.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 import torch
 from torch import nn
@@ -86,27 +98,44 @@ def _apply_grads(module: nn.Module, opt: AdamStepLR, grads) -> None:
 
 class TrainStep:
     """One outer step on ``generator``/``critic`` in place; built by
-    ``build_train_step``."""
+    ``build_train_step``. ``batch_fn(rng, n)`` replaces the synthetic datagen
+    (reference ``wgan_gp.py:279-280``)."""
 
     def __init__(self, generator: nn.Module, critic: nn.Module, opt_g: AdamStepLR,
                  opt_d: AdamStepLR, dg_cfg: DatagenConfig, loss_cfg: LossConfig,
-                 batch_size: int, reference: bool = False):
+                 batch_size: int, reference: bool = False,
+                 batch_fn: Optional[Callable[[torch.Generator, int], dict]] = None):
         if loss_cfg.n_critic == 0 and loss_cfg.adv_weight != 0.0:
             raise ValueError("n_critic=0 (the supervised path) requires adv_weight=0: "
                              "with no critic updates an adversarial generator term "
                              "would train against a frozen random critic")
-        if not reference:
-            datagen_kernel.check_config(dg_cfg)
         self.generator, self.critic = generator, critic
         self.opt_g, self.opt_d = opt_g, opt_d
         self.dg_cfg, self.loss_cfg = dg_cfg, loss_cfg
         self.batch_size = batch_size
+        self.batch_fn = batch_fn
         self.reference = reference
 
+    @property
+    def reference(self) -> bool:
+        return self._reference
+
+    @reference.setter
+    def reference(self, value: bool) -> None:
+        """Set the routes: both plain for the reference step, else each
+        kernel where it covers the configuration."""
+        self._reference = bool(value)
+        kernel_data = not value and self.batch_fn is None and datagen_kernel.covers(self.dg_cfg)
+        kernel_critic = not value and critic_kernel.covers(self.critic, self.dg_cfg.frame_length)
+        self.datagen_route = "kernel" if kernel_data else "plain"
+        self.critic_route = "kernel" if kernel_critic else "plain"
+
     def draw_batch(self, rng: torch.Generator):
-        if self.reference:
-            return synthetic_batch(rng, self.batch_size, self.dg_cfg)
-        return datagen_kernel.synthetic_batch(rng, self.batch_size, self.dg_cfg)
+        if self.batch_fn is not None:
+            return self.batch_fn(rng, self.batch_size)
+        if self.datagen_route == "kernel":
+            return datagen_kernel.synthetic_batch(rng, self.batch_size, self.dg_cfg)
+        return synthetic_batch(rng, self.batch_size, self.dg_cfg)
 
     def __call__(self, rng: torch.Generator) -> Dict[str, torch.Tensor]:
         """Draw the step's batch(es) and penalty uniforms from ``rng``, then run it."""
@@ -119,7 +148,7 @@ class TrainStep:
         return self.run(batch0, alphas, critic_batches or None)
 
     def critic_update(self, batch, alpha: torch.Tensor) -> Dict[str, torch.Tensor]:
-        if not self.reference:
+        if self.critic_route == "kernel":
             noisy, clean = batch["noisy"], batch["clean"]
             with torch.no_grad():
                 fake = self.generator(noisy)
@@ -154,13 +183,25 @@ class TrainStep:
 build_train_step = TrainStep  # the reference's name for the step builder
 
 
-def make_eval_step(generator: nn.Module, dg_cfg: DatagenConfig, batch_size: int):
-    """Validation metrics on a fresh batch (reference train.py:370-409)."""
+def _rec_metrics(generator: nn.Module, batch) -> Dict[str, torch.Tensor]:
+    err = generator(batch["noisy"]) - batch["clean"]
+    return {"rec_loss": err.abs().mean(), "mse": (err ** 2).mean()}
+
+
+def make_eval_step(generator: nn.Module, dg_cfg: DatagenConfig, batch_size: int,
+                   batch_fn: Optional[Callable[[torch.Generator, int], dict]] = None):
+    """Validation metrics on a fresh batch (reference train.py:370-409), from
+    the FFT datagen or ``batch_fn``. ``eval_step(rng, ema)`` also evaluates
+    the generator ``ema`` on the same batch, as ``rec_loss_ema``/``mse_ema``
+    (reference trainer.py:502-515)."""
 
     @torch.no_grad()
-    def eval_step(rng: torch.Generator) -> Dict[str, torch.Tensor]:
-        batch = synthetic_batch(rng, batch_size, dg_cfg)
-        err = generator(batch["noisy"]) - batch["clean"]
-        return {"rec_loss": err.abs().mean(), "mse": (err ** 2).mean()}
+    def eval_step(rng: torch.Generator, ema: Optional[nn.Module] = None) -> Dict[str, torch.Tensor]:
+        batch = (batch_fn(rng, batch_size) if batch_fn is not None
+                 else synthetic_batch(rng, batch_size, dg_cfg))
+        out = _rec_metrics(generator, batch)
+        if ema is not None:
+            out.update({f"{k}_ema": v for k, v in _rec_metrics(ema, batch).items()})
+        return out
 
     return eval_step

@@ -14,6 +14,21 @@ def complex_to_iq(x: torch.Tensor) -> torch.Tensor:
     return torch.stack([x.real, x.imag], dim=-1)
 
 
+def iq_to_complex(x: torch.Tensor) -> torch.Tensor:
+    """Real ``[..., L, 2]`` -> complex ``[..., L]``."""
+    return torch.complex(x[..., 0], x[..., 1])
+
+
+def nlc_to_ncl(x: torch.Tensor) -> torch.Tensor:
+    """``[..., L, C]`` (this layout) -> ``[..., C, L]`` (the reference's)."""
+    return x.transpose(-1, -2)
+
+
+def ncl_to_nlc(x: torch.Tensor) -> torch.Tensor:
+    """``[..., C, L]`` (the reference's layout) -> ``[..., L, C]``."""
+    return x.transpose(-1, -2)
+
+
 def joint_max_normalize(noisy: torch.Tensor, clean: torch.Tensor, eps: float = 1e-12):
     """Scale each frame of a (noisy, clean) pair by one shared factor, the
     max of ``|noisy|`` and ``|clean|`` over all but the batch axis

@@ -2,10 +2,14 @@
 """Outer-step time and device time by kernel for the PyTorch/CUDA port.
 
     python3 scripts/torch_step_profile.py [--steps 200] [--profile_steps 20]
+        [--channel awgn|rayleigh|rician|multipath] [--nonlinear]
 
 Runs the mini CWGAN-GP outer step of ``ofdmgan_tpu_torch`` with the config
-defaults (batch 64, n_critic 5) on one GPU, once through both CUDA kernels
-and once through the plain path (autograd critic, FFT datagen). For each it
+defaults (batch 64, n_critic 5) on one GPU, over ``--channel`` (default the
+config's AWGN) with the nonlinear impairments if ``--nonlinear``: once with
+the step's routes chosen by scope (each CUDA kernel where it covers the
+configuration; ``routes`` in the output) and once through the plain path
+(autograd critic, FFT datagen). For each it
 prints the wall time per outer step (host clock around ``--steps`` steps
 ending in a synchronize, after 20 warm-up steps). For the kernel path it then
 records ``--profile_steps`` steps with ``torch.profiler`` and prints the
@@ -36,15 +40,15 @@ from ofdmgan_tpu_torch.training.schedules import make_adam  # noqa: E402
 from ofdmgan_tpu_torch.training.wgan_gp import TrainStep  # noqa: E402
 
 
-def make_step(dev, use_kernels: bool) -> TrainStep:
-    cfg = Config()
+def make_step(dev, use_kernels: bool, channel: str, nonlinear: bool) -> TrainStep:
+    cfg = Config(channel_type=channel)
     tr = cfg.training
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
         g, d = MiniGenerator().to(dev), MiniDiscriminator().to(dev)
     return TrainStep(g, d, make_adam(g.parameters(), tr.lr_generator, tr.betas),
                      make_adam(d.parameters(), tr.lr_discriminator, tr.betas),
-                     datagen_config_from(cfg), loss_config_from(cfg), tr.batch_size,
+                     datagen_config_from(cfg, nonlinear), loss_config_from(cfg), tr.batch_size,
                      reference=not use_kernels)
 
 
@@ -70,13 +74,16 @@ def main() -> int:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--steps", type=int, default=200)
     p.add_argument("--profile_steps", type=int, default=20)
+    p.add_argument("--channel", default="awgn", choices=["awgn", "rayleigh", "rician", "multipath"])
+    p.add_argument("--nonlinear", action="store_true", help="PA + IQ + phase-noise impairments")
     args = p.parse_args()
     dev = resolve_device("cuda")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60,
                           check=True).stdout.strip().splitlines()[0]
     rng = torch.Generator(device=dev).manual_seed(0)
-    kern, plain = make_step(dev, True), make_step(dev, False)
+    kern = make_step(dev, True, args.channel, args.nonlinear)
+    plain = make_step(dev, False, args.channel, args.nonlinear)
     # plain, kernel, kernel, plain: the card's state drifts less between turns
     times = {"plain": [step_ms(plain, rng, args.steps)], "kernel": []}
     times["kernel"] += [step_ms(kern, rng, args.steps), step_ms(kern, rng, args.steps)]
@@ -118,7 +125,8 @@ def main() -> int:
     print(card)
     print(json.dumps({
         "device": torch.cuda.get_device_name(0), "nvidia_smi": card,
-        "batch": 64, "n_critic": 5,
+        "batch": 64, "n_critic": 5, "channel": args.channel, "nonlinear": args.nonlinear,
+        "routes": {"datagen": kern.datagen_route, "critic": kern.critic_route},
         "step_ms": times, "steps_per_s_kernel": 1e3 / wall_ms,
         "steps_per_s_plain": 1e3 / min(times["plain"]),
         "aten_calls_per_step": aten_calls,

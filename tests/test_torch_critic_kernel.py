@@ -265,3 +265,21 @@ def test_kernel_output_buffer_layout():
         off += p.numel()
     assert off == 521 and tuple(aux) == METRICS
     assert [float(v) for v in aux.values()] == [521.0, 522.0, 523.0, 524.0, 525.0]
+
+
+def test_covers_the_mini_critic_at_16_samples():
+    assert ck.covers(MiniDiscriminator(), 16)
+    assert not ck.covers(MiniDiscriminator(), 32)
+    assert not ck.covers(MiniDiscriminator(conv1_channels=4), 16)
+    assert not ck.covers(MiniDiscriminator(conv2_channels=8), 16)
+
+
+@pytest.mark.parametrize("L", [8, 32])
+def test_other_frame_lengths_raise_a_value_error(L):
+    """Not a shape error from inside the dense products."""
+    critic = MiniDiscriminator()
+    x = torch.zeros(4, L, 2)
+    alpha = torch.rand(4)
+    for fn in (ck.critic_grad_packed, ck.critic_grad, ck.prepare):
+        with pytest.raises(ValueError, match="frames of shape"):
+            fn(critic, x, x, x, alpha, 10.0)

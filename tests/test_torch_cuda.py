@@ -187,3 +187,24 @@ def test_kernel_step_matches_plain_step(cuda):
         step_p, step_k = (a - p0).detach(), (b - p0).detach()
         torch.testing.assert_close(step_k, step_p, rtol=0,
                                    atol=1e-3 * float(step_p.abs().max()) + 1e-9)
+
+
+@pytest.mark.parametrize("dg,conv1,launched", [
+    (sdg.DatagenConfig(), 8, (1, 5)),
+    (sdg.DatagenConfig.make(channel_type="multipath", nonlinear=True), 8, (0, 5)),
+    (sdg.DatagenConfig.make(frame_length=32, channel_type="rician"), 8, (0, 0)),
+    (sdg.DatagenConfig(), 4, (1, 0)),
+])
+def test_routes_by_scope_on_the_card(cuda, dg, conv1, launched):
+    """Each kernel launches where it covers the configuration and nowhere
+    else; the step is finite either way."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        g, d = MiniGenerator().to(cuda), MiniDiscriminator(conv1_channels=conv1).to(cuda)
+    step = TrainStep(g, d, make_adam(g.parameters(), 2e-4), make_adam(d.parameters(), 2e-4),
+                     dg, LossConfig(), 64)
+    before = (dk.launches, ck.launches)
+    metrics = step(torch.Generator(device=cuda).manual_seed(1))
+    torch.cuda.synchronize()
+    assert (dk.launches - before[0], ck.launches - before[1]) == launched
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())

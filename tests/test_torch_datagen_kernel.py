@@ -143,3 +143,16 @@ def test_cpu_wrapper_takes_the_plain_version():
 def test_unsupported_configs_raise(cfg):
     with pytest.raises(ValueError):
         dk.check_config(cfg)
+    assert not dk.covers(cfg)
+
+
+@pytest.mark.parametrize("cfg", [
+    DatagenConfig(),
+    DatagenConfig(frame_length=1024, nonlinear=True),
+    DatagenConfig(nonlinear=True, impairments=ImpairmentConfig(pa_saturation=0.5)),
+    DatagenConfig(nonlinear=False, impairments=ImpairmentConfig(cfo_enabled=True)),
+])
+def test_supported_configs_are_covered(cfg):
+    """A linear batch takes no impairment, so its settings do not matter."""
+    assert dk.covers(cfg)
+    dk.check_config(cfg)

@@ -1,4 +1,6 @@
-"""The port stands alone: no JAX, no PyYAML, nothing of ``ofdmgan_tpu``.
+"""The port stands alone: no JAX, no PyYAML, nothing of ``ofdmgan_tpu``, and
+no Pillow at import time (the GPU's machine has none; ``load_image`` imports
+it when called).
 
 Every module of ``ofdmgan_tpu_torch`` is imported in a fresh interpreter in
 which those modules cannot be imported, and the sources and
@@ -18,7 +20,14 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "ofdmgan_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "ofdmgan_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "PIL", "ofdmgan_tpu")
+# each imported inside a function of one module, where it is needed, and
+# never at module level
+IN_FUNCTIONS_ONLY = {"yaml": "ofdmgan_tpu_torch/config.py",
+                     "PIL": "ofdmgan_tpu_torch/signal/image_ofdm.py"}
+MODULES = ("ofdmgan_tpu_torch.signal.channel", "ofdmgan_tpu_torch.signal.image_ofdm",
+           "ofdmgan_tpu_torch.signal.qam", "ofdmgan_tpu_torch.signal.ofdm",
+           "ofdmgan_tpu_torch.training.trainer", "ofdmgan_tpu_torch.train")
 
 IMPORT_ALL = f"""
 import sys
@@ -29,6 +38,7 @@ import ofdmgan_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(ofdmgan_tpu_torch.__path__, "ofdmgan_tpu_torch.")]
 for name in names:
     importlib.import_module(name)
+print(" ".join(names))
 print(len(names))
 """
 
@@ -47,16 +57,28 @@ def test_every_module_imports_without_jax_yaml_or_the_jax_package():
     out = subprocess.run([sys.executable, "-c", IMPORT_ALL], cwd=REPO, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip().splitlines()[-1]) >= 20
+    lines = out.stdout.strip().splitlines()
+    assert int(lines[-1]) >= 24
+    assert set(MODULES) <= set(lines[-2].split())
 
 
 @pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"],
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_sources_import_nothing_forbidden(path):
-    # PyYAML may be imported inside a function (config.load_config) but never
-    # at module level; the rest nowhere
-    assert not set(_imports(path, False)) & (set(FORBIDDEN) - {"yaml"})
-    assert "yaml" not in set(_imports(path, path.name == "config.py"))
+    # PyYAML (config.load_config) and Pillow (image_ofdm.load_image) may be
+    # imported inside a function of their module but never at module level;
+    # the rest nowhere
+    assert not set(_imports(path, False)) & (set(FORBIDDEN) - set(IN_FUNCTIONS_ONLY))
+    for name, home in IN_FUNCTIONS_ONLY.items():
+        assert name not in set(_imports(path, path == REPO / home))
+
+
+def test_a_module_level_pillow_import_fails_the_check(tmp_path):
+    src = tmp_path / "mod.py"
+    src.write_text("import numpy\nfrom PIL import Image\n")
+    assert "PIL" in set(_imports(src, True))
+    src.write_text("def load():\n    from PIL import Image\n    return Image\n")
+    assert "PIL" not in set(_imports(src, True)) and "PIL" in set(_imports(src, False))
 
 
 def test_entry_points_raise_without_a_gpu(tmp_path):

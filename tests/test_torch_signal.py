@@ -2,7 +2,9 @@
 
 Every random number is drawn once, with the JAX package's own key splits,
 and handed to both sides as numpy. Tolerance: float32 rounding of the FFT
-and of the elementwise chains, atol 2e-6 on values of order one.
+and of the elementwise chains, atol 2e-6 on values of order one (OFDM
+symbols of N subcarriers scale as N, and their atol with them); QAM bits
+and symbols exactly.
 """
 
 import dataclasses
@@ -18,12 +20,16 @@ from ofdmgan_tpu import config as jconfig
 from ofdmgan_tpu.signal import channel as jchannel
 from ofdmgan_tpu.signal import datagen as jdatagen
 from ofdmgan_tpu.signal import impairments as jimp
+from ofdmgan_tpu.signal import ofdm as jofdm
+from ofdmgan_tpu.signal import qam as jqam
 from ofdmgan_tpu.signal.ofdm import ofdm_like_frame as j_ofdm_like_frame
 from ofdmgan_tpu.utils import iq as jiq
 from ofdmgan_tpu_torch import config as tconfig
 from ofdmgan_tpu_torch.signal import channel as tchannel
 from ofdmgan_tpu_torch.signal import datagen as tdatagen
 from ofdmgan_tpu_torch.signal import impairments as timp
+from ofdmgan_tpu_torch.signal import ofdm as tofdm
+from ofdmgan_tpu_torch.signal import qam as tqam
 from ofdmgan_tpu_torch.signal.ofdm import ofdm_like_frame as t_ofdm_like_frame
 from ofdmgan_tpu_torch.utils import iq as tiq
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
@@ -49,6 +55,14 @@ def test_iq_layout_and_joint_normalize():
     for t, j in zip(tiq.joint_max_normalize(torch.from_numpy(a), torch.from_numpy(b)),
                     jiq.joint_max_normalize(jnp.asarray(a), jnp.asarray(b))):
         _close(t, j)
+
+
+def test_iq_converters():
+    a = RNG.standard_normal((3, 8, 16, 2)).astype(np.float32)
+    np.testing.assert_array_equal(tiq.iq_to_complex(torch.from_numpy(a)).numpy(),
+                                  np.asarray(jiq.iq_to_complex(jnp.asarray(a))))
+    for t, j in ((tiq.nlc_to_ncl, jiq.nlc_to_ncl), (tiq.ncl_to_nlc, jiq.ncl_to_nlc)):
+        np.testing.assert_array_equal(t(torch.from_numpy(a)).numpy(), np.asarray(j(jnp.asarray(a))))
 
 
 def test_ofdm_like_frame():
@@ -82,14 +96,6 @@ def test_apply_all_default_chain():
            jimp.apply_all(key, jnp.asarray(x), cfg_j))
 
 
-@pytest.mark.parametrize("change", [dict(pa_model="saleh"), dict(dc_enabled=True),
-                                    dict(cfo_enabled=True)])
-def test_unported_impairments_raise(change):
-    x = torch.zeros(2, 16, dtype=torch.complex64)
-    with pytest.raises(NotImplementedError):
-        timp.apply_all(x, timp.ImpairmentConfig(**change), torch.zeros(2, 16))
-
-
 def test_awgn_from_the_jax_draws():
     x = _complex((8, 16))
     snr = RNG.uniform(0, 30, 8).astype(np.float32)
@@ -102,13 +108,6 @@ def test_awgn_from_the_jax_draws():
     y_j, info_j = jchannel.awgn(key, jnp.asarray(x), jnp.asarray(snr))
     _close(y_t, y_j)
     _close(info_t["noise_power"], info_j["noise_power"])
-
-
-@pytest.mark.parametrize("kind", ["rayleigh", "rician", "multipath"])
-def test_fading_channels_raise(kind):
-    x = torch.zeros(2, 16, dtype=torch.complex64)
-    with pytest.raises(NotImplementedError):
-        tchannel.apply(x, torch.zeros(2), tchannel.ChannelConfig(kind), x.real, x.real)
 
 
 def jax_draws(key, batch_size, frame_length):
@@ -168,3 +167,71 @@ def test_config_matches_the_jax_helpers():
             tp["betas"], tp["scheduler_step"], tp["scheduler_gamma"]) == \
         (tr.batch_size, tr.epochs, tr.lr_generator, tr.lr_discriminator, tr.betas,
          tr.scheduler_step, tr.scheduler_gamma)
+
+
+@pytest.mark.parametrize("mod", ["QPSK", "QAM16", "QAM64"])
+def test_qam_is_bit_exact(mod):
+    b = tqam.bits_per_symbol(mod)
+    assert b == jqam.bits_per_symbol(mod)
+    np.testing.assert_array_equal(tqam.constellation(mod), jqam.constellation(mod))
+    bits = RNG.integers(0, 2, (4, 30 * b + 1)).astype(np.int32)   # one bit left over
+    sym_t = tqam.modulate(torch.from_numpy(bits), mod)
+    sym_j = jqam.modulate(jnp.asarray(bits), mod)
+    np.testing.assert_array_equal(sym_t.numpy(), np.asarray(sym_j))
+    np.testing.assert_array_equal(tqam.demodulate(sym_t, mod).numpy(), bits[:, :30 * b])
+    noisy = np.asarray(sym_j) + 0.2 * _complex(sym_t.shape)
+    np.testing.assert_array_equal(tqam.demodulate(torch.from_numpy(noisy), mod).numpy(),
+                                  np.asarray(jqam.demodulate(jnp.asarray(noisy), mod)))
+
+
+def test_unknown_modulation_raises():
+    with pytest.raises(ValueError):
+        tqam.bits_per_symbol("QAM256")
+
+
+@pytest.mark.parametrize("n,cp,spacing", [(8, 2, 4), (64, 16, 8)])
+def test_ofdm_codec(n, cp, spacing):
+    spec_t, spec_j = tofdm.OFDMSpec(n, cp, spacing), jofdm.OFDMSpec(n, cp, spacing)
+    assert spec_t.samples_per_symbol == spec_j.samples_per_symbol
+    np.testing.assert_array_equal(spec_t.data_indices, spec_j.data_indices)
+    np.testing.assert_array_equal(spec_t.pilot_indices, spec_j.pilot_indices)
+    for a, b in zip(tofdm.dft_matrices(n), jofdm.dft_matrices(n)):
+        np.testing.assert_array_equal(a, b)
+    sym = _complex((2, 3 * spec_t.n_data_subcarriers - 1))   # pads the last symbol
+    sig_t = tofdm.modulate(torch.from_numpy(sym), spec_t)
+    sig_j = jofdm.modulate(jnp.asarray(sym), spec_j)
+    _close(sig_t, sig_j, atol=2e-6 * n)
+    rx = np.asarray(sig_j) + 0.1 * _complex(sig_t.shape)
+    for t, j in zip(tofdm.demodulate(torch.from_numpy(rx), spec_t),
+                    jofdm.demodulate(jnp.asarray(rx), spec_j)):
+        _close(t, j)
+    data, h = tofdm.demodulate(sig_t, spec_t)
+    _close(data[:, :sym.shape[1]], sym)
+    _close(h, np.ones(h.shape))
+
+
+def test_partial_yaml_takes_the_references_defaults(tmp_path):
+    """A file that names only some keys: every other one takes the
+    reference's default (training_params_from and its siblings), not the
+    full YAML's."""
+    path = tmp_path / "partial.yaml"
+    path.write_text("ofdm:\n  frame_length: 32\ntraining:\n  n_critic: 3\n"
+                    "  optimizer:\n    lr_generator: 3.0e-4\n")
+    raw = jconfig.load_config(str(path))
+    cfg = tconfig.load_config(str(path))
+    tp = jconfig.training_params_from(raw)
+    tr = cfg.training
+    assert (tp["epochs"], tp["batch_size"], tp["lr_generator"], tp["lr_discriminator"],
+            tp["betas"], tp["scheduler_step"], tp["scheduler_gamma"],
+            tp["checkpoint_interval"], tp["save_best"], tp["checkpoint_dir"], tp["log_dir"]) == \
+        (tr.epochs, tr.batch_size, tr.lr_generator, tr.lr_discriminator, tr.betas,
+         tr.scheduler_step, tr.scheduler_gamma, tr.checkpoint_interval, tr.save_best,
+         cfg.checkpoint_dir, cfg.log_dir)
+    assert (tr.epochs, tr.batch_size, tr.scheduler_step, tr.checkpoint_interval) == \
+        (200, 32, 50, 10)
+    assert dataclasses.asdict(jconfig.loss_config_from(raw)) == \
+        dataclasses.asdict(tconfig.loss_config_from(cfg))
+    dj, dt = jconfig.datagen_config_from(raw), tconfig.datagen_config_from(cfg)
+    assert (dj.frame_length, dj.snr_min, dj.snr_max, dj.channel.kind) == \
+        (dt.frame_length, dt.snr_min, dt.snr_max, dt.channel.kind)
+    assert tconfig.config_from_dict({}).training == tconfig.MISSING_KEY_TRAINING

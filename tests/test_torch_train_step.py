@@ -25,7 +25,9 @@ from ofdmgan_tpu.training import make_adam as j_make_adam
 from ofdmgan_tpu.training import make_train_step
 from ofdmgan_tpu.training.wgan_gp import LossConfig as JLossConfig
 from ofdmgan_tpu_torch.models import MiniDiscriminator, MiniGenerator
-from ofdmgan_tpu_torch.ops import datagen_kernel
+from ofdmgan_tpu_torch.ops import critic_kernel, datagen_kernel
+from ofdmgan_tpu_torch.signal.channel import ChannelConfig
+from ofdmgan_tpu_torch.signal.impairments import ImpairmentConfig
 from ofdmgan_tpu_torch.signal.datagen import DatagenConfig, make_draws, synthetic_batch_from_draws
 from ofdmgan_tpu_torch.training.schedules import make_adam
 from ofdmgan_tpu_torch.training.wgan_gp import LossConfig, TrainStep
@@ -35,38 +37,44 @@ from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 B, LR, DECAY_G = 32, 2e-4, 4   # StepLR every 4 generator updates: the trajectory crosses it
 KEY = jax.random.PRNGKey(0)
-JDG = JDatagenConfig.make(frame_length=16, snr_range=(0, 30))
 
 
 class Pair:
-    """A JAX step and a port step on the same weights."""
+    """A JAX step and a port step on the same weights. ``reference=False``
+    builds the port's step with its routes chosen by scope, as ``Trainer``
+    does."""
 
-    def __init__(self, n_critic, adv_weight=1.0):
+    def __init__(self, n_critic, adv_weight=1.0, frame_length=16, conv1_channels=8,
+                 reference=True):
         self.n_critic = n_critic
-        x0 = jnp.zeros((1, 16, 2))
-        jg, jc = JGen(), JCritic()
+        L = frame_length
+        jdg = JDatagenConfig.make(frame_length=L, snr_range=(0, 30))
+        x0 = jnp.zeros((1, L, 2))
+        jg = JGen(frame_length=L)
+        jc = JCritic(frame_length=L, conv1_channels=conv1_channels)
         pg, pd = jg.init(KEY, x0), jc.init(KEY, x0, x0)
         decay_d = DECAY_G * max(n_critic, 1)
         tx_g = j_make_adam(LR, (0.0, 0.9), DECAY_G, 0.5)
         tx_d = j_make_adam(LR, (0.0, 0.9), decay_d, 0.5)
         self.jstate = TrainState.create(pg, pd, tx_g, tx_d)
-        self.jstep = make_train_step(jg.apply, jc.apply, tx_g, tx_d, JDG,
+        self.jstep = make_train_step(jg.apply, jc.apply, tx_g, tx_d, jdg,
                                      JLossConfig(n_critic=n_critic, adv_weight=adv_weight),
                                      batch_size=B, donate=False)
         np_tree = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
-        self.g, self.d = MiniGenerator(), MiniDiscriminator()
+        self.g, self.d = MiniGenerator(), MiniDiscriminator(conv1_channels=conv1_channels)
         self.g.load_state_dict(from_jax_params(np_tree(pg)))
         self.d.load_state_dict(from_jax_params(np_tree(pd)))
         self.opt_g = make_adam(self.g.parameters(), LR, (0.0, 0.9), DECAY_G, 0.5)
         self.opt_d = make_adam(self.d.parameters(), LR, (0.0, 0.9), decay_d, 0.5)
-        self.tstep = TrainStep(self.g, self.d, self.opt_g, self.opt_d, DatagenConfig(),
+        self.tstep = TrainStep(self.g, self.d, self.opt_g, self.opt_d,
+                               DatagenConfig(frame_length=L),
                                LossConfig(n_critic=n_critic, adv_weight=adv_weight), B,
-                               reference=True)
+                               reference=reference)
 
         @jax.jit
         def draws(key):
             k_data, k_crit, _ = jax.random.split(key, 3)
-            batch = j_synthetic_batch(k_data, B, JDG)
+            batch = j_synthetic_batch(k_data, B, jdg)
             alphas = [jax.random.uniform(k, (B, 1, 1), jnp.float32)[:, 0, 0]
                       for k in jax.random.split(k_crit, max(n_critic, 1))]
             return batch, alphas
@@ -81,6 +89,31 @@ class Pair:
         alphas = [torch.from_numpy(np.array(a)) for a in alphas[:self.n_critic]]
         tm = self.tstep.run(batch, alphas)
         return jm, tm
+
+    def jax_steps(self, n):
+        """``n`` steps of the JAX side alone."""
+        for i in range(n):
+            self.jstate, _ = self.jstep(self.jstate, jax.random.fold_in(KEY, 100 + i))
+
+    def load_jax_state(self):
+        """The port's parameters, Adam moments, step counts and schedule
+        positions set to the JAX side's."""
+        count = int(self.jstate.step)
+        np_tree = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
+        for mod, opt, params, jopt, updates in (
+                (self.g, self.opt_g, self.jstate.params_g, self.jstate.opt_g, count),
+                (self.d, self.opt_d, self.jstate.params_d, self.jstate.opt_d,
+                 count * self.n_critic)):
+            mod.load_state_dict(from_jax_params(np_tree(params)))
+            mu, nu = from_jax_params(np_tree(jopt[0].mu)), from_jax_params(np_tree(jopt[0].nu))
+            assert int(jopt[0].count) == updates
+            for name, param in mod.named_parameters():
+                opt.opt.state[param] = {"step": torch.tensor(float(updates)),
+                                        "exp_avg": mu[name].clone(),
+                                        "exp_avg_sq": nu[name].clone()}
+            opt.sched.last_epoch = updates
+            base = opt.sched.base_lrs[0]
+            opt.opt.param_groups[0]["lr"] = base * 0.5 ** (updates // opt.sched.step_size)
 
     def assert_params_close(self, atol):
         for mod, jp in ((self.g, self.jstate.params_g), (self.d, self.jstate.params_d)):
@@ -121,6 +154,32 @@ def test_twenty_step_trajectory_tracks_jax(adversarial):
     assert int(p.jstate.step) == 20
     assert p.opt_g.opt.param_groups[0]["lr"] == pytest.approx(LR * 0.5 ** 5)
     p.assert_params_close(2e-5)
+
+
+@pytest.mark.parametrize("frame_length,conv1_channels", [(32, 8), (16, 4)])
+def test_step_outside_the_critic_kernels_scope_matches_jax(frame_length, conv1_channels):
+    """At L = 32 and with a 4-channel critic the step takes the autograd
+    critic by scope (the datagen kernel still covers both configurations).
+    From a state warmed by three JAX steps and copied into the port, one
+    step of each: the tolerances of the one-step test above."""
+    p = Pair(n_critic=5, frame_length=frame_length, conv1_channels=conv1_channels,
+             reference=False)
+    assert (p.tstep.datagen_route, p.tstep.critic_route) == ("kernel", "plain")
+    p.jax_steps(3)
+    p.load_jax_state()
+    jm, tm = p.step(3)
+    p.assert_params_close(2e-6)
+    for name, ref in jm.items():
+        np.testing.assert_allclose(float(tm[name]), float(ref), rtol=1e-5, atol=1e-6,
+                                   err_msg=name)
+    for mod, opt, jopt in ((p.g, p.opt_g, p.jstate.opt_g), (p.d, p.opt_d, p.jstate.opt_d)):
+        for slot, jtree in (("exp_avg", jopt[0].mu), ("exp_avg_sq", jopt[0].nu)):
+            ref = from_jax_params(jax.tree_util.tree_map(np.asarray, jtree))
+            for name, param in mod.named_parameters():
+                np.testing.assert_allclose(opt.opt.state[param][slot].numpy(),
+                                           ref[name].numpy(), rtol=1e-5,
+                                           atol=1e-5 * float(ref[name].abs().max()) + 1e-12,
+                                           err_msg=f"{name} {slot}")
 
 
 def test_supervised_path_matches_jax():
@@ -183,3 +242,45 @@ def test_step_draws_one_batch_or_one_per_critic_update(fresh, monkeypatch):
     metrics = step(torch.Generator().manual_seed(2))
     assert len(calls) == (6 if fresh else 1)
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
+
+
+@pytest.mark.parametrize("dg,conv1,routes", [
+    (DatagenConfig(), 8, ("kernel", "kernel")),
+    (DatagenConfig(nonlinear=True), 8, ("kernel", "kernel")),
+    (DatagenConfig(frame_length=32), 8, ("kernel", "plain")),
+    (DatagenConfig(frame_length=12), 8, ("plain", "plain")),
+    (DatagenConfig(channel=ChannelConfig("multipath"), nonlinear=True), 8, ("plain", "kernel")),
+    (DatagenConfig(nonlinear=True, impairments=ImpairmentConfig(cfo_enabled=True)), 8,
+     ("plain", "kernel")),
+    (DatagenConfig(), 4, ("kernel", "plain")),
+])
+def test_routes_follow_the_configuration(dg, conv1, routes):
+    """Each kernel where it covers the configuration, the plain route
+    elsewhere; ``reference=True`` and a ``batch_fn`` as documented."""
+    g, d = MiniGenerator(), MiniDiscriminator(conv1_channels=conv1)
+    args = (g, d, make_adam(g.parameters(), LR), make_adam(d.parameters(), LR), dg, LossConfig(), B)
+    step = TrainStep(*args)
+    assert (step.datagen_route, step.critic_route) == routes
+    assert routes == ("kernel" if datagen_kernel.covers(dg) else "plain",
+                      "kernel" if critic_kernel.covers(d, dg.frame_length) else "plain")
+    step.reference = True
+    assert (step.datagen_route, step.critic_route) == ("plain", "plain")
+    step.reference = False
+    assert (step.datagen_route, step.critic_route) == routes
+    with_fn = TrainStep(*args, batch_fn=lambda rng, n: None)
+    assert (with_fn.datagen_route, with_fn.critic_route) == ("plain", routes[1])
+
+
+@pytest.mark.parametrize("kernel", ["datagen", "critic"])
+def test_a_failing_kernel_raises(kernel, monkeypatch):
+    """A kernel route that fails is not replaced by the plain route."""
+    def broken(*args, **kwargs):
+        raise RuntimeError("kernel launch failed")
+
+    if kernel == "datagen":
+        monkeypatch.setattr(datagen_kernel, "synthetic_batch", broken)
+    else:
+        monkeypatch.setattr(critic_kernel, "critic_grad", broken)
+    step = _fresh_pair(False)
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        step(torch.Generator().manual_seed(0))
