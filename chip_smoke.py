@@ -9,7 +9,12 @@ then trains a configuration outside the datagen kernel's scope (multipath
 channel, every default impairment, an EMA, a checkpoint each epoch) and
 checks that it takes the FFT datagen and the critic kernel, that a trainer
 resumed from its checkpoint takes the same step, and that an L = 32 Rician
-step takes neither kernel. Every phase prints one
+step takes neither kernel. Phase ``full`` trains the full U-Net pair
+(3,936,578 and 524,129 parameters) at full width, L = 1024 and batch 512,
+two epochs of four outer steps through the datagen kernel and the autograd
+critic in float32 with TF32 off; checks that its kernel step and its
+reference step agree, and that the fused decoder computes the module's
+forward; and times the step fused and unfused. Every phase prints one
 JSON line with its wall seconds as it ends. Any failed check raises, and the
 script exits non-zero. The last lines are the kernel table, the card's name
 and power limit, and the result line.
@@ -29,6 +34,26 @@ launches), plain time and error at the main path's batch (64); the phase
 lines give them at every length and batch timed, and at the large batches
 also the time per launch of back-to-back launches of the kernel alone (CUDA
 events; at B = 64 that would time the host's call rate, not the device).
+Phase ``full``: the datagen kernel and its plain version at the kernel's
+shape there (B = 512, L = 1024, linear and nonlinear), each against a
+float64 evaluation of the function: both are 1024-term float32 sums some
+2e-6 from the exact value at their worst entries (past atol 1e-6 where a
+value is small), so the kernel's worst error must stay within 1.5 times
+its plain version's; the kernel step and the reference step on the
+kernel's batch, with cuDNN's deterministic algorithms, within 1e-3 of each
+tensor's largest update, as above (cuDNN's default weight-gradient
+algorithms add in another order on every run; their spread is reported,
+not gated); the kernel step on the kernel's batch and the reference step
+on the FFT datagen's batch from the same draws, the plain path end to end,
+with metrics within rtol 1e-3: their inputs differ by rounding (about
+2e-6), which the full step carries into its update as it does cuDNN's
+summation order (a few hundredths of a tensor's largest update on a CPU,
+32 to 128 frames), so the update difference is reported, not gated;
+the fused decoder within atol 1e-5 of the module's tanh output (the bound
+of ``tests/test_unet_infer.py``). Its step times are host clocks around
+five steps ending in a synchronize, after two warm-up steps, unfused,
+fused, fused, unfused; FLOP per step are counted by ``step_flops`` from
+the layer shapes.
 """
 
 from __future__ import annotations
@@ -55,6 +80,14 @@ CRITIC_TIMED = (MAIN_B, 65536)
 CRITIC_PARAMS = 521         # the mini critic's parameters, one gradient each
 STEP_RTOL = 1e-3            # kernel vs plain outer step, of each tensor's largest update
 RESUME_RTOL = 1e-6          # resumed vs uninterrupted step, of each tensor's largest update
+FULL_B = 512               # the full recipe's batch (scripts/r4_fading_gan_queue.sh:28)
+FULL_L = 1024
+FULL_STEPS = 4             # outer steps per epoch of the full run
+FULL_G_PARAMS, FULL_D_PARAMS = 3_936_578, 524_129
+FULL_G_MACS, FULL_D_MACS = 200_048_640, 23_790_080   # per frame, unfused generator forward
+DATAGEN_EXACT_RATIO = 1.5  # full: kernel's worst error from float64 over its plain version's
+FULL_METRIC_RTOL = 1e-3    # full step's metrics on the kernel's vs the FFT datagen's batch
+FUSED_ATOL = 1e-5          # fused against unfused decoder, tanh output (tests/test_unet_infer.py)
 TRAIN_LOG_KEYS = {"train/d_loss", "train/g_loss", "train/wasserstein", "train/rec_loss",
                   "train/gp", "val/rec_loss", "val/mse"}   # the reference's log keys
 
@@ -164,20 +197,38 @@ def critic_bound_ms(b: int) -> tuple[float, str]:
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
-def updates_agree(start: dict, a: dict, b: dict, rtol: float, what: str) -> tuple:
+def updates_agree(start: dict, a: dict, b: dict, rtol, what: str) -> tuple:
     """(largest difference, largest difference over the tensor's largest
     update) of two updates from ``start``, per parameter tensor; raises where
-    a difference passes ``rtol`` of that tensor's largest update (``b``'s)."""
+    a difference passes ``rtol`` of that tensor's largest update (``b``'s),
+    unless ``rtol`` is None."""
     worst_abs, worst_rel = 0.0, 0.0
     for name, p0 in start.items():
         upd_a, upd_b = (a[name] - p0).detach(), (b[name] - p0).detach()
         diff, size = float((upd_a - upd_b).abs().max()), float(upd_b.abs().max())
-        if not diff <= rtol * size + 1e-9:   # written so that a NaN fails
+        if rtol is not None and not diff <= rtol * size + 1e-9:   # so that a NaN fails
             raise AssertionError(f"{what} differ on {name}: {diff:.3e} against a largest "
                                  f"update of {size:.3e} (limit {rtol} of it)")
         worst_abs = max(worst_abs, diff)
         worst_rel = max(worst_rel, diff / size if size else 0.0)
     return worst_abs, worst_rel
+
+
+def clone_step(trainer, reference: bool, gen_forward=None):
+    """A ``TrainStep`` on deep copies of ``trainer``'s models and Adam states
+    (and StepLR positions): ``reference`` selects the reference step,
+    ``gen_forward`` the training forward."""
+    from ofdmgan_tpu_torch.training.schedules import make_adam
+    from ofdmgan_tpu_torch.training.wgan_gp import TrainStep
+    g, d = copy.deepcopy(trainer.generator), copy.deepcopy(trainer.critic)
+    tr = trainer.config.training
+    opt_g = make_adam(g.parameters(), tr.lr_generator, tr.betas, 1)
+    opt_d = make_adam(d.parameters(), tr.lr_discriminator, tr.betas, 1)
+    for new, old in ((opt_g, trainer.opt_g), (opt_d, trainer.opt_d)):
+        new.opt.load_state_dict(copy.deepcopy(old.opt.state_dict()))
+        new.sched.load_state_dict(old.sched.state_dict())
+    return TrainStep(g, d, opt_g, opt_d, trainer.dg_cfg, trainer.loss_cfg, trainer.batch_size,
+                     reference=reference, gen_forward=gen_forward)
 
 
 def all_params(model) -> dict:
@@ -268,6 +319,214 @@ def train_scope(dev, gen, steps: int) -> dict:
     return out
 
 
+def full_macs_per_frame(g, d, L: int) -> tuple[int, int, int]:
+    """Multiply-adds per frame of the full generator's forward, its critic's
+    forward (the dense layer included) and the generator's ``dec*_1``
+    convs, from the layer shapes: K * C_in * C_out * L_out each."""
+    def macs(conv, l_out):
+        c_out, c_in, k = conv.weight.shape
+        return k * c_in * c_out * l_out
+    lv = g.levels
+    gen = sum(macs(getattr(g, f"enc{i+1}_{j}"), L >> (i + 1)) for i in range(lv) for j in (1, 2))
+    gen += macs(g.bottle1, L >> lv) + macs(g.bottle2, L >> lv) + macs(g.final, L)
+    dec1 = sum(macs(getattr(g, f"dec{i+1}_1"), L >> (lv - i - 1)) for i in range(lv))
+    gen += dec1 + sum(macs(getattr(g, f"dec{i+1}_2"), L >> (lv - i - 1)) for i in range(lv))
+    critic = sum(macs(getattr(d, f"conv{i+1}"), L >> (i + 1)) for i in range(d.levels))
+    return gen, critic + d.dense.weight.numel(), dec1
+
+
+def step_flops(b: int, g_macs: float, d_macs: float) -> float:
+    """FLOP of one outer step at n_critic 5, counting a backward as twice its
+    forward: each critic update runs the generator once (1 G) and the
+    critic on real and fake frames with its backward (6 D) and the penalty
+    (forward, input gradient, and the second-order parameter gradient of
+    both: 6 D); the generator update runs the generator with its backward
+    (3 G) and the critic forward and back to the frames (2 D): 8 G + 62 D
+    multiply-adds a frame, 2 FLOP each."""
+    return 2.0 * b * (8 * g_macs + 62 * d_macs)
+
+
+def full_phase(dev, gen) -> dict:
+    """Phase ``full``: the full U-Net pair at full width (levels 5, base 32,
+    L = 1024, batch 512, n_critic 5, float32 with TF32 off), trained two
+    epochs of FULL_STEPS outer steps through the datagen kernel; the
+    datagen kernel's error at this shape against its plain version's; the kernel step against the reference step; the fused decoder against the unfused
+    forward; then step times, frames/s fused and unfused, peak memory, the
+    datagen kernel's device time at this shape and the achieved float32
+    FLOP/s. Returns the phase line's fields."""
+    from ofdmgan_tpu_torch.config import Config
+    from ofdmgan_tpu_torch.models import count_parameters
+    from ofdmgan_tpu_torch.models.unet_infer import make_unet_infer_apply
+    from ofdmgan_tpu_torch.ops import critic_kernel as ck, datagen_kernel as dk
+    from ofdmgan_tpu_torch.signal import datagen as sdg
+    from ofdmgan_tpu_torch.training.trainer import Trainer, build_models
+
+    base = Config(checkpoint_dir="build/chip_smoke/full/checkpoints",
+                  log_dir="build/chip_smoke/full/logs")
+    cfg = dataclasses.replace(base, frame_length=FULL_L,
+                              training=dataclasses.replace(base.training, batch_size=FULL_B))
+    g, d = build_models(cfg, "full", seed=0)
+    counts = (count_parameters(g), count_parameters(d))
+    if counts != (FULL_G_PARAMS, FULL_D_PARAMS):
+        raise AssertionError(f"the full pair has {counts} parameters")
+    g_macs, d_macs, dec1_macs = full_macs_per_frame(g, d, FULL_L)
+    if (g_macs, d_macs) != (FULL_G_MACS, FULL_D_MACS):
+        raise AssertionError(f"the full pair does {g_macs}, {d_macs} multiply-adds a frame")
+    g_macs_fused = g_macs - dec1_macs // 3   # dec*_1 at 8/12 of their multiply-adds
+    trainer = Trainer(cfg, samples_per_epoch=FULL_STEPS * FULL_B, val_samples=FULL_B, seed=0,
+                      device=dev, generator=g, discriminator=d)
+    routes = {"datagen": trainer.step.datagen_route, "critic": trainer.step.critic_route}
+    if routes != {"datagen": "kernel", "critic": "plain"}:
+        raise AssertionError(f"the full run took the routes {routes}")
+    dk.launches = 0
+    ck.launches = 0
+    t_train = time.time()
+    history = trainer.train(epochs=2, experiment_name="chip_smoke_full")
+    torch.cuda.synchronize()
+    train_s = time.time() - t_train
+    launches = {"datagen": dk.launches, "critic_grad": ck.launches}
+    if launches != {"datagen": 2 * FULL_STEPS, "critic_grad": 0}:
+        raise AssertionError(f"the full run launched {launches}, not {2 * FULL_STEPS} and 0")
+    if (len(history) != 2 or any(set(rec) != TRAIN_LOG_KEYS for rec in history)
+            or not all(math.isfinite(v) for rec in history for v in rec.values())):
+        raise AssertionError(f"non-finite or missing training metrics: {history}")
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    if flags != (False, False):
+        raise AssertionError(f"TF32 was left on after the full run: {flags}")
+    out = {"params": {"generator": counts[0], "critic": counts[1]},
+           "macs_per_frame": {"generator": g_macs, "generator_fused": g_macs_fused,
+                              "critic": d_macs},
+           "routes": routes, "launches": launches, "train_s": round(train_s, 3),
+           "history": history}
+
+    # the datagen kernel at this path's shape, B = 512 and L = 1024, on one
+    # set of draws, linear and with the default nonlinear chain. The kernel
+    # and its plain version are both 1024-term float32 sums, each some 2e-6
+    # from the exact value at its worst entry, which is more than atol 1e-6
+    # where a value is small, so the pair cannot be held at the tolerance
+    # of the shorter frames. Both are measured against a float64 evaluation
+    # of the function (the FFT datagen on the draws in float64), and the
+    # kernel's worst error must stay within DATAGEN_EXACT_RATIO of its plain
+    # version's; their difference and the kernel's difference from the
+    # float32 FFT datagen (the reference route's batch) are reported
+    draws = sdg.make_draws(gen, FULL_B, FULL_L)
+    draws64 = {k: v.double() for k, v in draws.items()}
+    keys = ("noisy", "clean", "snr")
+    dg_err = {}
+    for nl in (False, True):
+        dg_cfg = dataclasses.replace(trainer.dg_cfg, nonlinear=nl)
+        got = dk.synthetic_batch_from_draws(draws, dg_cfg)
+        plain = dk.synthetic_batch_plain(draws, dg_cfg)
+        fft = sdg.synthetic_batch_from_draws(draws, dg_cfg)
+        exact = sdg.synthetic_batch_from_draws(draws64, dg_cfg)
+        torch.cuda.synchronize()
+        for k in keys:
+            e_kernel, e_plain = max_err(got, exact, (k,)), max_err(plain, exact, (k,))
+            if not e_kernel <= max(DATAGEN_EXACT_RATIO * e_plain, 1e-6):   # so that a NaN fails
+                raise AssertionError(
+                    f"datagen L={FULL_L} B={FULL_B} nonlinear={nl} {k}: the kernel is "
+                    f"{e_kernel:.3e} from float64, its plain version {e_plain:.3e}")
+        dg_err[f"nonlinear={nl}"] = {"float64": max_err(got, exact, keys),
+                                     "plain_float64": max_err(plain, exact, keys),
+                                     "plain": max_err(got, plain, keys + ("scale",)),
+                                     "fft": max_err(got, fft, keys)}
+        if nl == trainer.dg_cfg.nonlinear:
+            batch_k, batch_p = got, fft
+    out["datagen_max_abs_err"] = dg_err
+    del plain, exact, draws64
+
+    # one outer step from the trained state on the kernel route and one on
+    # the reference route, with the same penalty uniforms: first on the same
+    # injected batch (the kernel's), where the routes must change nothing
+    # but the datagen; then the reference step on the FFT datagen's batch
+    # from the same draws, the plain path end to end. cuDNN's default
+    # weight-gradient algorithms add with atomics, in another order on every
+    # run, and Adam's per-entry scaling carries that into the update: the
+    # pairs run with cuDNN's deterministic algorithms, and the spread of the
+    # default ones is reported beside them. Across the two datagens the
+    # inputs differ by rounding, and the update by more than STEP_RTOL of
+    # its largest entry, as with cuDNN's summation order: that pair is held
+    # by its metrics, and its update difference is reported
+    alphas = [torch.rand(FULL_B, generator=gen, device=dev) for _ in range(trainer.loss_cfg.n_critic)]
+
+    def step_pair(deterministic: bool, batch_ref) -> tuple:
+        saved = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = deterministic
+        try:
+            step_k, step_p = clone_step(trainer, False), clone_step(trainer, True)
+            start = {n: p.detach().clone() for n, p in all_params(step_k).items()}
+            m_k = {k: float(v) for k, v in step_k.run(batch_k, alphas).items()}
+            m_p = {k: float(v) for k, v in step_p.run(batch_ref, alphas).items()}
+            torch.cuda.synchronize()
+        finally:
+            torch.backends.cudnn.deterministic = saved
+        return (start, all_params(step_k), all_params(step_p)), m_k, m_p
+
+    pair, _, _ = step_pair(True, batch_k)
+    step_diff, step_rel = updates_agree(*pair, STEP_RTOL, "full kernel and reference steps")
+    pair, m_k, m_p = step_pair(True, batch_p)
+    metric_rel = {k: abs(m_k[k] - m_p[k]) / max(abs(m_p[k]), 1e-12) for k in m_p}
+    if not all(v <= FULL_METRIC_RTOL for v in metric_rel.values()):   # so that a NaN fails
+        raise AssertionError(f"the full step's metrics differ between the kernel's and the FFT "
+                             f"datagen's batches: {metric_rel} (rtol {FULL_METRIC_RTOL})")
+    _, cross_rel = updates_agree(*pair, None, "")
+    _, spread_rel = updates_agree(*step_pair(False, batch_k)[0], None, "")
+    out.update(step_update_max_abs_diff=step_diff, step_update_max_rel_diff=step_rel,
+               fft_batch_metric_max_rel_diff=max(metric_rel.values()),
+               fft_batch_step_update_max_rel_diff=cross_rel,
+               step_update_max_rel_diff_default_cudnn=spread_rel)
+    del pair
+
+    # the fused decoder against the module's forward, float32
+    fused_apply = make_unet_infer_apply(levels=trainer.generator.levels, act_dtype=torch.float32)
+    with torch.no_grad():
+        y_mod = trainer.generator(batch_k["noisy"])
+        y_fused = fused_apply(trainer.generator, batch_k["noisy"])
+    fused_err = float((y_fused - y_mod).abs().max())
+    if not fused_err <= FUSED_ATOL:
+        raise AssertionError(f"fused and unfused decoders differ by {fused_err:.3e} "
+                             f"(atol {FUSED_ATOL})")
+    out["fused_vs_unfused_max_abs_err"] = fused_err
+    del y_mod, y_fused, batch_k, batch_p, fft, got
+
+    # step time, unfused and fused in turns (unfused, fused, fused, unfused),
+    # each after two warm-up steps; peak memory of each
+    def timed(step, n: int = 5) -> tuple[float, int]:
+        for _ in range(2):
+            step(trainer.rng)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        for _ in range(n):
+            step(trainer.rng)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t) / n * 1e3, torch.cuda.max_memory_allocated()
+
+    fused_fwd = make_unet_infer_apply(levels=trainer.generator.levels, act_dtype=torch.float32)
+    steps = {"unfused": clone_step(trainer, False),
+             "fused": clone_step(trainer, False, gen_forward=fused_fwd)}
+    ms = {"unfused": [], "fused": []}
+    peak = {}
+    for name in ("unfused", "fused", "fused", "unfused"):
+        t_ms, peak[name] = timed(steps[name])
+        ms[name].append(t_ms)
+    best = {k: min(v) for k, v in ms.items()}
+    dg_cfg = trainer.dg_cfg
+    dg_us = profiled_us_per_call(lambda: dk.synthetic_batch(gen, FULL_B, dg_cfg), "datagen_kernel")
+    flops = {"unfused": step_flops(FULL_B, g_macs, d_macs),
+             "fused": step_flops(FULL_B, g_macs_fused, d_macs)}
+    out["times"] = {
+        "ms_per_step": ms, "frames_per_s": {k: FULL_B / v * 1e3 for k, v in best.items()},
+        "max_memory_allocated_bytes": peak,
+        "datagen_device_us_per_call": dg_us,
+        "datagen_share_of_step": dg_us / 1e3 / best["unfused"],
+        "flop_per_step": flops,
+        "achieved_fp32_flop_per_s": {k: flops[k] / (best[k] / 1e3) for k in best},
+        "share_of_fp32_peak": {k: flops[k] / (best[k] / 1e3) / FP32_FLOPS_PER_S for k in best},
+    }
+    return out
+
+
 def main() -> int:
     t0 = time.time()
     if not torch.cuda.is_available():
@@ -285,9 +544,8 @@ def main() -> int:
     from ofdmgan_tpu_torch.ops import build, critic_kernel as ck, datagen_kernel as dk
     from ofdmgan_tpu_torch.signal import datagen as sdg
     from ofdmgan_tpu_torch.signal.impairments import ImpairmentConfig
-    from ofdmgan_tpu_torch.training.schedules import make_adam
     from ofdmgan_tpu_torch.training.trainer import Trainer
-    from ofdmgan_tpu_torch.training.wgan_gp import LossConfig, TrainStep, critic_loss_fn
+    from ofdmgan_tpu_torch.training.wgan_gp import LossConfig, critic_loss_fn
 
     dev = resolve_device("cuda")
 
@@ -444,20 +702,9 @@ def main() -> int:
     # plain path (FFT datagen, autograd critic), on the same draws and
     # penalty uniforms; each tensor's update must agree within STEP_RTOL of
     # that update's largest entry
-    def clone_step(reference: bool) -> TrainStep:
-        g, d = copy.deepcopy(trainer.generator), copy.deepcopy(trainer.critic)
-        tr = cfg.training
-        opt_g = make_adam(g.parameters(), tr.lr_generator, tr.betas, 1)
-        opt_d = make_adam(d.parameters(), tr.lr_discriminator, tr.betas, 1)
-        for new, old in ((opt_g, trainer.opt_g), (opt_d, trainer.opt_d)):
-            new.opt.load_state_dict(copy.deepcopy(old.opt.state_dict()))
-            new.sched.load_state_dict(old.sched.state_dict())
-        return TrainStep(g, d, opt_g, opt_d, trainer.dg_cfg, trainer.loss_cfg, MAIN_B,
-                         reference=reference)
-
     draws = sdg.make_draws(gen, MAIN_B, 16)
     alphas = [torch.rand(MAIN_B, generator=gen, device=dev) for _ in range(5)]
-    step_k, step_p = clone_step(False), clone_step(True)
+    step_k, step_p = clone_step(trainer, False), clone_step(trainer, True)
     start = {n: p.detach().clone() for n, p in all_params(step_k).items()}
     m_k = step_k.run(dk.synthetic_batch_from_draws(draws, trainer.dg_cfg), alphas)
     m_p = step_p.run(sdg.synthetic_batch_from_draws(draws, trainer.dg_cfg), alphas)
@@ -473,7 +720,12 @@ def main() -> int:
     scope = train_scope(dev, gen, steps)
     log("train_scope", t, **scope)
 
-    # ---- 6. report
+    # ---- 6. the full U-Net family at full width through the datagen kernel
+    t = time.time()
+    full = full_phase(dev, gen)
+    log("full", t, **full)
+
+    # ---- 7. report
     db, dby = datagen_bound_ms(MAIN_B, 16)
     cb, cby = critic_bound_ms(MAIN_B)
     dg_main, cr_main = dg_times[f"L16_B{MAIN_B}"], cr_times[MAIN_B]
@@ -482,12 +734,18 @@ def main() -> int:
          "replaces": "ofdmgan_tpu/ops/pallas_datagen.py:200", "launches": launches["datagen"],
          "max_abs_err": datagen_err[f"L16_B{MAIN_B}"], "ms": dg_main["ms"],
          "plain_ms": dg_main["plain_ms"], "bound_ms": db, "bound_by": dby,
-         "library_ms": None, "device_us_per_launch": dg_main["device_us_per_launch"]},
+         "library_ms": None, "device_us_per_launch": dg_main["device_us_per_launch"],
+         "launches_by_path": {"train": launches["datagen"],
+                              "train_scope": scope["fading"]["launches"]["datagen"],
+                              "full": full["launches"]["datagen"]}},
         {"name": "critic_grad", "route": "cuda", "source": "ofdmgan_tpu_torch/csrc/critic_grad.cu",
          "replaces": "ofdmgan_tpu/ops/pallas_critic.py:195", "launches": launches["critic_grad"],
          "max_abs_err": critic_err[MAIN_B], "ms": cr_main["ms"],
          "plain_ms": cr_main["plain_ms"], "bound_ms": cb, "bound_by": cby,
-         "library_ms": None, "device_us_per_launch": cr_main["device_us_per_launch"]},
+         "library_ms": None, "device_us_per_launch": cr_main["device_us_per_launch"],
+         "launches_by_path": {"train": launches["critic_grad"],
+                              "train_scope": scope["fading"]["launches"]["critic_grad"],
+                              "full": full["launches"]["critic_grad"]}},
     ]
     log("total", t0)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -6,7 +6,10 @@ file are dataclasses, so a run needs no file and no PyYAML, and ``Config()``
 equals that file. ``load_config(path)`` reads a YAML file with the
 reference's keys and imports ``yaml`` only then; a key the file lacks takes
 the reference's own default (``training_params_from`` and its siblings),
-which for the training section differs from the YAML's value.
+which for the training section differs from the YAML's value. The full
+U-Net family's section ``model.full`` (levels, base_channels) is read where
+the file has it; ``config/config.yaml`` has none, so the reference's
+defaults of ``train.py:332-334`` hold (5 levels, 32 base channels).
 """
 
 from __future__ import annotations
@@ -34,6 +37,17 @@ class DiscriminatorSection:
     conv1_channels: int = 8
     conv2_channels: int = 16
     leaky_slope: float = 0.2
+
+
+@dataclasses.dataclass(frozen=True)
+class FullModelSection:
+    """The full U-Net family (``--model full``)."""
+
+    levels: int = 5
+    base_channels: int = 32
+
+
+FULL_FRAME_LENGTH = 1024   # --model full's frame length unless given (train.py:281-284)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -70,6 +84,7 @@ class Config:
     channel_type: str = "awgn"
     generator: GeneratorSection = GeneratorSection()
     discriminator: DiscriminatorSection = DiscriminatorSection()
+    full: FullModelSection = FullModelSection()
     training: TrainingSection = TrainingSection()
     checkpoint_dir: str = "./checkpoints"
     log_dir: str = "./logs"
@@ -82,7 +97,7 @@ def config_from_dict(d: Dict[str, Any]) -> Config:
     t = d.get("training", {})
     opt, loss, sched = t.get("optimizer", {}), t.get("loss", {}), t.get("scheduler", {})
     model = d.get("model", {})
-    g, dc = model.get("generator", {}), model.get("discriminator", {})
+    g, dc, full = model.get("generator", {}), model.get("discriminator", {}), model.get("full", {})
     base = Config()
     tr = MISSING_KEY_TRAINING
     ofdm = d.get("ofdm", {})
@@ -105,6 +120,8 @@ def config_from_dict(d: Dict[str, Any]) -> Config:
             conv2_channels=int(dc.get("conv2_channels", 16)),
             leaky_slope=float(dc.get("leaky_slope", 0.2)),
         ),
+        full=FullModelSection(levels=int(full.get("levels", 5)),
+                              base_channels=int(full.get("base_channels", 32))),
         training=TrainingSection(
             batch_size=int(t.get("batch_size", tr.batch_size)),
             epochs=int(t.get("epochs", tr.epochs)),

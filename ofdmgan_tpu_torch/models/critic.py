@@ -5,7 +5,9 @@
     -> LeakyReLU -> conv2 (8->16, k3, s2) -> LeakyReLU
     -> sum over time -> dense (16 -> 1)
 
-521 parameters, no normalisation, sum pooling in float32.
+521 parameters, no normalisation, sum pooling in float32. ``act_dtype``
+stores conv1's activation in that format (reference ``critic.py:39-60``);
+inputs in a storage format are read upcast to float32.
 """
 
 from __future__ import annotations
@@ -14,14 +16,15 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .generator import _conv
+from .generator import FP8_DTYPES, _conv, as_dtype, read_stored, storage_dtype
 
 
 class MiniDiscriminator(nn.Module):
     def __init__(self, input_channels: int = 4, conv1_channels: int = 8,
-                 conv2_channels: int = 16, leaky_slope: float = 0.2):
+                 conv2_channels: int = 16, leaky_slope: float = 0.2, act_dtype=None):
         super().__init__()
         self.leaky_slope = leaky_slope
+        self.act_dtype = storage_dtype(act_dtype)
         self.conv1 = _conv(input_channels, conv1_channels, 2)
         self.conv2 = _conv(conv1_channels, conv2_channels, 2)
         self.dense = nn.Linear(conv2_channels, 1)
@@ -30,10 +33,17 @@ class MiniDiscriminator(nn.Module):
 
     def forward(self, candidate: torch.Tensor, condition: torch.Tensor) -> torch.Tensor:
         """``[B, L, 2] x [B, L, 2] -> [B, 1]`` critic score."""
-        h = torch.cat([candidate, condition], dim=-1).transpose(1, 2)
+        dt = self.conv1.weight.dtype
+        if candidate.dtype == condition.dtype:   # read by the conv, fp8 through bf16
+            pair = [read_stored(candidate, dt), read_stored(condition, dt)]
+        else:   # a mixed call is promoted first, fp8 straight to float32 (critic.py:41-49)
+            pair = [as_dtype(candidate, dt), as_dtype(condition, dt)]
+        h = torch.cat(pair, dim=-1).transpose(1, 2)
         h = F.leaky_relu(self.conv1(h), self.leaky_slope)
-        h = F.leaky_relu(self.conv2(h), self.leaky_slope)
-        return self.dense(h.sum(dim=-1))
+        if self.act_dtype is not None:
+            h = h.to(self.act_dtype)
+        h = F.leaky_relu(self.conv2(read_stored(h, dt)), self.leaky_slope)
+        return self.dense(as_dtype(h, torch.float32).sum(dim=-1))
 
 
 def compute_gradient_penalty(critic: nn.Module, real: torch.Tensor, fake: torch.Tensor,
@@ -42,11 +52,18 @@ def compute_gradient_penalty(critic: nn.Module, real: torch.Tensor, fake: torch.
 
     ``alpha`` ``[B]`` is one uniform per sample, drawn by the caller (the
     reference draws it at ``critic.py:95``). The graph is kept, so the
-    penalty's own parameter gradient is second order.
+    penalty's own parameter gradient is second order. As in the reference,
+    the interpolate is kept in ``real``'s storage dtype, so its gradient
+    arrives rounded to that format; an fp8 gradient is upcast before the
+    norm is summed.
     """
     a = alpha.reshape(-1, *([1] * (real.ndim - 1)))
-    interp = (a * real + (1.0 - a) * fake).detach().requires_grad_(True)
+    f32 = torch.float32
+    interp = as_dtype(a * as_dtype(real, f32) + (1.0 - a) * as_dtype(fake, f32), real.dtype)
+    interp = interp.detach().requires_grad_(True)
     score = critic(interp, condition).sum()
     (grads,) = torch.autograd.grad(score, interp, create_graph=True)
+    if grads.dtype in FP8_DTYPES:
+        grads = grads.float()
     norms = torch.sqrt((grads.reshape(grads.shape[0], -1) ** 2).sum(dim=1) + 1e-12)
     return ((norms - 1.0) ** 2).mean()

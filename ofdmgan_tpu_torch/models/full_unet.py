@@ -1,0 +1,142 @@
+"""The full-scale U-Net family: the 1024-sample, 5-level generator and its
+critic (counterpart of ``ofdmgan_tpu/models/full_unet.py:77-182``).
+
+    enc_i:   conv(s2) + conv(s1)       L: 1024 -> 512 -> 256 -> 128 -> 64 -> 32
+    bottle:  conv(s1) x2 at 512 channels
+    dec_i:   upsample x2 + conv(s1) x2, then + the encoder's skip (i < levels)
+    final:   conv(32 -> 2, k3) + tanh
+
+Channels 2 -> 32 -> 64 -> 128 -> 256 -> 512 at the default width; every conv
+is k = 3 with padding (1, 1), followed by LeakyReLU(0.2) except the last;
+additive skips at every decoder level but the last (no skip at input
+resolution). Submodule names are the reference's layer names
+(``full_unet_layer_names``), so the JAX weight bridge maps them one to one.
+3,936,578 generator and 524,129 critic parameters at levels 5, base 32.
+
+Both models take and return channels-last ``[B, L, 2]`` and run
+channels-first inside: each transposes once at its boundary. ``encode`` and
+``decode`` are separate so the pipeline stages of ROADMAP A.8 can apply
+them apart. The reference's ``weight_bits``/``act_bits`` quantization
+simulation is ROADMAP A.5 and raises here; its tensor-parallel shardings
+(``full_unet.py:185-251``) wait for A.8.
+
+Inputs in a storage format (bf16, fp8) are read upcast to the weights'
+float32, as flax's promotion reads them in the reference.
+"""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.dense_conv import upsample_nearest_2x
+from .generator import _conv, as_dtype
+
+
+def full_unet_layer_names(levels: int = 5) -> List[str]:
+    """The generator's layers in the reference export's order
+    (``full_unet.py:254-263``)."""
+    names = []
+    for i in range(levels):
+        names += [f"enc{i+1}_1", f"enc{i+1}_2"]
+    names += ["bottle1", "bottle2"]
+    for i in range(levels):
+        names += [f"dec{i+1}_1", f"dec{i+1}_2"]
+    return names + ["final"]
+
+
+def check_frame_length(length: int, levels: int) -> None:
+    if length % (2 ** levels):
+        raise ValueError(f"frame length {length} is not divisible by 2^levels = {2 ** levels}")
+
+
+def _quant_not_ported(weight_bits: int, act_bits: int) -> None:
+    if weight_bits or act_bits:
+        raise NotImplementedError("weight_bits/act_bits quantization of the full U-Net is not "
+                                  "ported yet (ROADMAP A.5)")
+
+
+class FullUNetGenerator(nn.Module):
+    """``[B, L, 2] -> [B, L, 2]``; L divisible by 2^levels."""
+
+    def __init__(self, frame_length: int = 1024, levels: int = 5, base_channels: int = 32,
+                 output_channels: int = 2, leaky_slope: float = 0.2,
+                 weight_bits: int = 0, act_bits: int = 0):
+        super().__init__()
+        _quant_not_ported(weight_bits, act_bits)
+        check_frame_length(frame_length, levels)
+        self.frame_length, self.levels, self.leaky_slope = frame_length, levels, leaky_slope
+        widths = [base_channels * 2 ** i for i in range(levels)]
+        cin = 2
+        for i, w in enumerate(widths):
+            setattr(self, f"enc{i+1}_1", _conv(cin, w, 2))
+            setattr(self, f"enc{i+1}_2", _conv(w, w, 1))
+            cin = w
+        self.bottle1 = _conv(cin, cin, 1)
+        self.bottle2 = _conv(cin, cin, 1)
+        for i in range(levels):
+            out_w = widths[levels - 2 - i] if i < levels - 1 else widths[0]
+            setattr(self, f"dec{i+1}_1", _conv(cin, out_w, 1))
+            setattr(self, f"dec{i+1}_2", _conv(out_w, out_w, 1))
+            cin = out_w
+        self.final = _conv(cin, output_channels, 1)
+
+    def _act(self, h: torch.Tensor) -> torch.Tensor:
+        return F.leaky_relu(h, self.leaky_slope)
+
+    def encode(self, x: torch.Tensor) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+        """The strided encoder: ``[B, L, 2]`` -> the bottleneck input and
+        every level's skip activation, channels-first."""
+        check_frame_length(x.shape[1], self.levels)
+        h = as_dtype(x.transpose(1, 2), self.enc1_1.weight.dtype)
+        skips = []
+        for i in range(self.levels):
+            h = self._act(getattr(self, f"enc{i+1}_1")(h))
+            h = self._act(getattr(self, f"enc{i+1}_2")(h))
+            skips.append(h)
+        return h, skips
+
+    def decode(self, h: torch.Tensor, skips: List[torch.Tensor]) -> torch.Tensor:
+        """The bottleneck and the decoder, consuming the skips: -> ``[B, L, 2]``."""
+        h = self._act(self.bottle1(h))
+        h = self._act(self.bottle2(h))
+        for i in range(self.levels):
+            h = self._act(getattr(self, f"dec{i+1}_1")(upsample_nearest_2x(h)))
+            h = self._act(getattr(self, f"dec{i+1}_2")(h))
+            if i < self.levels - 1:
+                h = h + skips[self.levels - 2 - i]
+        return torch.tanh(self.final(h)).transpose(1, 2)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.decode(*self.encode(x))
+
+
+class FullDiscriminator(nn.Module):
+    """The scaled conditional critic: ``levels`` strided convs of width
+    ``base * 2^min(i, 4)``, a sum over length in float32, dense -> 1."""
+
+    def __init__(self, frame_length: int = 1024, levels: int = 5, base_channels: int = 32,
+                 leaky_slope: float = 0.2):
+        super().__init__()
+        check_frame_length(frame_length, levels)
+        self.frame_length, self.levels, self.leaky_slope = frame_length, levels, leaky_slope
+        cin = 4
+        for i in range(levels):
+            w = base_channels * 2 ** min(i, 4)
+            setattr(self, f"conv{i+1}", _conv(cin, w, 2))
+            cin = w
+        self.dense = nn.Linear(cin, 1)
+        nn.init.xavier_uniform_(self.dense.weight)
+        nn.init.zeros_(self.dense.bias)
+
+    def forward(self, candidate: torch.Tensor, condition: torch.Tensor) -> torch.Tensor:
+        """``[B, L, 2] x [B, L, 2] -> [B, 1]`` critic score."""
+        check_frame_length(candidate.shape[1], self.levels)
+        dt = self.conv1.weight.dtype
+        h = torch.cat([as_dtype(candidate, dt), as_dtype(condition, dt)], dim=-1).transpose(1, 2)
+        for i in range(self.levels):
+            h = F.leaky_relu(getattr(self, f"conv{i+1}")(h), self.leaky_slope)
+        return self.dense(as_dtype(h, torch.float32).sum(dim=-1))

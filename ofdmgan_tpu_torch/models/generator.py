@@ -7,15 +7,49 @@
 
 LeakyReLU(0.2) after every conv but the last, Xavier-uniform weights, zero
 biases, 258 parameters. ``input_residual`` selects the residual head
-``y = x + out_conv(...)`` in place of ``tanh``. The reference's
-``rtl_faithful`` and ``qat`` modes are not ported yet and raise.
+``y = x + out_conv(...)`` in place of ``tanh``. ``act_dtype`` (bfloat16,
+float8_e4m3fn or float8_e5m2) stores each activation in that format, as
+the reference's ``act_dtype`` does (``generator.py:63-64``): every conv
+reads its input upcast to float32 (exact) against float32 weights, and fp8
+is read as the reference reads it through bf16 (``ops/dense_conv.py:174-178``,
+also exact). The reference's ``rtl_faithful`` and ``qat`` modes are not
+ported yet and raise.
 """
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from ..ops.dense_conv import upsample_nearest_2x
+
+FP8_DTYPES = (torch.float8_e4m3fn, torch.float8_e5m2)
+ACT_DTYPES = ("bfloat16", "float8_e4m3fn", "float8_e5m2")
+
+
+def storage_dtype(act_dtype) -> Optional[torch.dtype]:
+    """``None``, a name of ``ACT_DTYPES`` or a torch dtype -> a torch dtype or ``None``."""
+    if act_dtype is None or isinstance(act_dtype, torch.dtype):
+        return act_dtype
+    if act_dtype not in ACT_DTYPES:
+        raise ValueError(f"act_dtype must be one of {ACT_DTYPES}, not {act_dtype!r}")
+    return getattr(torch, act_dtype)
+
+
+def as_dtype(h: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``h`` in ``dtype``, without a dispatched call where it already is (the
+    mini step is bound by its host's calls)."""
+    return h if h.dtype == dtype else h.to(dtype)
+
+
+def read_stored(h: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """A stored activation read as ``dtype`` for a conv; fp8 goes through
+    bf16 as in the reference, so a gradient flowing back is rounded to bf16
+    before fp8, as there."""
+    return as_dtype(h.to(torch.bfloat16) if h.dtype in FP8_DTYPES else h, dtype)
 
 
 def _conv(cin: int, cout: int, stride: int) -> nn.Conv1d:
@@ -34,12 +68,13 @@ class MiniGenerator(nn.Module):
                  enc1_channels: int = 4, bottleneck_channels: int = 8,
                  dec1_channels: int = 4, leaky_slope: float = 0.2,
                  input_residual: bool = False, rtl_faithful: bool = False,
-                 qat: bool = False):
+                 qat: bool = False, act_dtype=None):
         super().__init__()
         if rtl_faithful or qat:
             raise NotImplementedError("the rtl_faithful and qat modes are not ported yet")
         self.leaky_slope = leaky_slope
         self.input_residual = input_residual
+        self.act_dtype = storage_dtype(act_dtype)
         self.enc1 = _conv(input_channels, enc1_channels, 2)
         self.bottleneck = _conv(enc1_channels, bottleneck_channels, 2)
         self.dec1 = _conv(bottleneck_channels, dec1_channels, 1)
@@ -47,10 +82,14 @@ class MiniGenerator(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """Noisy frames ``[B, L, 2]`` -> enhanced ``[B, L, 2]``."""
-        act = lambda h: F.leaky_relu(h, self.leaky_slope)  # noqa: E731
-        h = x.transpose(1, 2)
-        enc1 = act(self.enc1(h))
-        bneck = act(self.bottleneck(enc1))
-        dec1 = act(self.dec1(bneck.repeat_interleave(2, dim=-1)))
-        out = self.out_conv((dec1 + enc1).repeat_interleave(2, dim=-1)).transpose(1, 2)
-        return x + out if self.input_residual else torch.tanh(out)
+        dt = self.enc1.weight.dtype
+        store = (lambda h: h) if self.act_dtype is None else (lambda h: h.to(self.act_dtype))  # noqa: E731
+        block = lambda conv, h: store(F.leaky_relu(conv(h), self.leaky_slope))  # noqa: E731
+        # each stored activation is read once (torch has no fp8 addition for
+        # the gradient of a second read)
+        enc1 = read_stored(block(self.enc1, read_stored(x.transpose(1, 2), dt)), dt)
+        bneck = read_stored(block(self.bottleneck, enc1), dt)
+        dec1 = read_stored(block(self.dec1, upsample_nearest_2x(bneck)), dt)
+        skip = read_stored(store(dec1 + enc1), dt)
+        out = self.out_conv(upsample_nearest_2x(skip)).transpose(1, 2)
+        return as_dtype(x, out.dtype) + out if self.input_residual else torch.tanh(out)

@@ -4,7 +4,8 @@ Counterpart of ``ofdmgan_tpu/ops/dense_conv.py:93``. A channels-last frame
 ``[L, C]`` flattens row-major to index ``t*C + c``; a zero-padded strided
 conv1d is then ``y.flatten() = x.flatten() @ A``. The critic-gradient kernel
 works on these matrices, and ``dense_grads_to_params`` maps its gradients
-back to the conv kernels through autograd of this expansion.
+back to the conv kernels through autograd of this expansion. The module also
+holds the U-Nets' nearest-neighbour upsample.
 """
 
 from __future__ import annotations
@@ -44,3 +45,11 @@ def conv1d_dense_matrix(w: torch.Tensor, l_in: int, stride: int, padding: int) -
     p = _placement(k, l_in, l_out, stride, padding, w.device)
     a = torch.einsum("oik,kab->aibo", w, p)
     return a.reshape(l_in * cin, l_out * cout)
+
+
+def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour x2 upsample along the last axis: the length axis of
+    a channels-first ``[..., C, L]`` activation (counterpart of
+    ``ofdmgan_tpu/ops/dense_conv.py:194``, which repeats the length axis of a
+    channels-last one)."""
+    return x.repeat_interleave(2, dim=-1)

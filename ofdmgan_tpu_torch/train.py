@@ -1,7 +1,10 @@
 """CWGAN-GP training CLI of the port: ``python -m ofdmgan_tpu_torch.train``.
 
-Counterpart of the repository's ``train.py`` for the mini model, with its
-flags and meanings: any channel (``--channel``), frame length
+Counterpart of the repository's ``train.py``, with its flags and meanings:
+the model family (``--model mini`` or ``full``: the 1024-sample U-Net, whose
+frame length defaults to 1024; ``--fused_decoder`` trains it through the
+fused decoder, at float32 too), the step's numerics (``--act_dtype``,
+``--matmul_precision``), any channel (``--channel``), frame length
 (``--frame_length``), the nonlinear impairments (``--nonlinear``), image
 data (``--image_dir``, ``--image_chunks``), resume (``--resume``), warm start
 (``--init_from``: a checkpoint directory, or a generator ``.npz``), an EMA
@@ -17,8 +20,32 @@ import dataclasses
 
 
 def build_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(description="Train the mini CWGAN-GP (PyTorch/CUDA port)")
+    p = argparse.ArgumentParser(description="Train the CWGAN-GP (PyTorch/CUDA port)")
     p.add_argument("--config", default=None, help="reference-format YAML config")
+    p.add_argument("--model", choices=["mini", "full"], default="mini",
+                   help="model family: mini (16-sample, 258 parameters) or the full "
+                        "1024-sample 5-level U-Net (3.94M parameters)")
+    p.add_argument("--fused_decoder", action="store_true",
+                   help="--model full: train through the fused k=2-pair decoder "
+                        "(8 instead of 12 Cin*Cout*L decoder multiply-adds, no upsampled "
+                        "activation; slower than the unfused forward on the H100); "
+                        "float32 or --act_dtype bfloat16")
+    p.add_argument("--act_dtype", default=None, choices=["bfloat16", "float8_e4m3fn",
+                                                         "float8_e5m2"],
+                   help="activation storage format of the step (parameters, products "
+                        "and optimizer state stay float32)")
+    p.add_argument("--matmul_precision", default="float32",
+                   choices=["float32", "tensorfloat32", "bfloat16", "bf16_tf32gp",
+                            "bf16_f32gp"],
+                   help="the step's numerics (float32, the default, keeps TF32 off; the "
+                        "bf16_*gp modes keep the gradient penalty at TF32 or float32)")
+    p.add_argument("--qat", action="store_true", help="quantization-aware training (mini)")
+    p.add_argument("--rtl_qat", action="store_true",
+                   help="train against the RTL's op semantics with QAT (mini)")
+    p.add_argument("--quant_bits", type=int, nargs=2, default=None,
+                   metavar=("WEIGHT_BITS", "ACT_BITS"),
+                   help="--model full: quantization-aware training under the int8 export "
+                        "semantics")
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--batch_size", type=int, default=None)
     p.add_argument("--lr", type=float, default=None, help="learning rate of both nets")
@@ -60,10 +87,34 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+def check_args(parser: argparse.ArgumentParser, args) -> None:
+    """The reference's refusals (train.py:274-276, 329-343) and what is not
+    ported yet."""
+    full = args.model == "full"
+    if args.residual and full:
+        parser.error("--residual applies to the mini generator")
+    if (args.qat or args.rtl_qat) and full:
+        parser.error("--qat/--rtl_qat apply to the mini (ROM-deployable) model only")
+    if args.fused_decoder and not full:
+        parser.error("--fused_decoder is the full U-Net's training forward (--model full)")
+    if args.fused_decoder and args.act_dtype not in (None, "bfloat16"):
+        parser.error("--fused_decoder supports float32 or --act_dtype bfloat16 (fp8 "
+                     "operands have no conv path)")
+    if args.quant_bits and not full:
+        parser.error("--quant_bits applies to the full model (mini QAT is --qat/--rtl_qat)")
+    if args.quant_bits:
+        raise NotImplementedError("--quant_bits is not ported yet (ROADMAP A.5)")
+    if args.qat or args.rtl_qat:
+        raise NotImplementedError("--qat/--rtl_qat are not ported yet (ROADMAP A.5)")
+
+
 def config_from_args(args):
     """The run's ``Config``: the file or the defaults, then the flags."""
-    from .config import Config, load_config
+    from .config import FULL_FRAME_LENGTH, Config, load_config
 
+    frame_length = args.frame_length
+    if frame_length is None and args.model == "full":
+        frame_length = FULL_FRAME_LENGTH
     cfg = load_config(args.config) if args.config else Config()
     tr = cfg.training
     lr_d = args.lr_d if args.lr_d is not None else args.lr
@@ -74,7 +125,7 @@ def config_from_args(args):
         lr_generator=args.lr, lr_discriminator=lr_d).items() if v is not None})
     cfg = dataclasses.replace(cfg, training=tr, **{k: v for k, v in dict(
         checkpoint_dir=args.checkpoint_dir, log_dir=args.log_dir, channel_type=args.channel,
-        frame_length=args.frame_length).items() if v is not None})
+        frame_length=frame_length).items() if v is not None})
     if args.residual:
         cfg = dataclasses.replace(
             cfg, generator=dataclasses.replace(cfg.generator, input_residual=True))
@@ -82,17 +133,25 @@ def config_from_args(args):
 
 
 def main(argv=None):
-    args = build_parser().parse_args(argv)
+    """Train as the flags say; returns the trainer."""
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    check_args(parser, args)
 
     from .models import count_parameters
-    from .training.trainer import Trainer
+    from .training.trainer import Trainer, build_models
     from .utils.params_io import load_params_tree
 
-    trainer = Trainer(config_from_args(args), nonlinear=args.nonlinear,
+    cfg = config_from_args(args)
+    generator, critic = build_models(cfg, args.model, args.seed, args.act_dtype)
+    trainer = Trainer(cfg, nonlinear=args.nonlinear,
                       pa_saturation=args.pa_saturation,
                       samples_per_epoch=args.samples_per_epoch, val_samples=args.val_samples,
                       seed=args.seed, device=args.device, ema_decay=args.ema,
-                      image_dir=args.image_dir, image_chunks=args.image_chunks)
+                      image_dir=args.image_dir, image_chunks=args.image_chunks,
+                      generator=generator, discriminator=critic,
+                      fused_decoder=args.fused_decoder, act_dtype=args.act_dtype,
+                      matmul_precision=args.matmul_precision)
     trainer.nan_policy = args.nan_policy
     print(f"Generator parameters: {count_parameters(trainer.generator):,}")
     print(f"Discriminator parameters: {count_parameters(trainer.critic):,}")
@@ -109,6 +168,7 @@ def main(argv=None):
     if args.profile:
         print(f"Profiler trace written to {trainer.profile_steps(args.profile)}")
     trainer.train(experiment_name=args.experiment)
+    return trainer
 
 
 if __name__ == "__main__":

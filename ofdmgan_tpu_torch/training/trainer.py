@@ -19,6 +19,14 @@ best) and ``final_model/``, each with
 The generator alone is also written as ``champion_params_g.npz`` (on each
 new best) and ``final_params_g.npz``. Not ported: data/pipeline parallelism
 and the post-training FPGA export.
+
+The models are the mini pair of the configuration unless the caller
+injects another family (``generator``/``discriminator``, as the reference's
+``trainer.py:86-126``; ``build_models`` makes either family from a seed).
+Checkpoints, resume, warm start, the EMA and validation work on any family,
+through the module's own forward. ``fused_decoder`` trains the full U-Net
+through the fused k = 2-pair decoder (``models/unet_infer.py``), and
+``act_dtype`` and ``matmul_precision`` are the step's (``wgan_gp.py``).
 """
 
 from __future__ import annotations
@@ -36,7 +44,9 @@ import torch
 
 from ..config import Config, datagen_config_from, loss_config_from
 from ..device import resolve_device
-from ..models import MiniDiscriminator, MiniGenerator
+from ..models import FullDiscriminator, FullUNetGenerator, MiniDiscriminator, MiniGenerator
+from ..models.generator import FP8_DTYPES, storage_dtype
+from ..models.unet_infer import make_unet_infer_apply
 from ..utils.jax_params import from_jax_params, to_jax_params
 from ..utils.logging import MetricsLogger
 from ..utils.params_io import load_params_tree, save_params_tree
@@ -49,17 +59,51 @@ TRAIN_LOG_KEYS = {"d_loss": "d_loss", "g_loss": "g_loss", "wasserstein": "wasser
                   "rec_loss": "rec_loss", "gp": "gradient_penalty"}
 
 
+MODEL_FAMILIES = ("mini", "full")
+
+
+def build_models(config: Config, family: str = "mini", seed: int = 0, act_dtype=None):
+    """The generator and critic of ``family`` (``MODEL_FAMILIES``) for
+    ``config``, initialised from ``seed`` on the CPU. ``act_dtype`` is the
+    mini pair's activation storage (the full family has none: the step
+    casts its batch, as the reference does)."""
+    if family not in MODEL_FAMILIES:
+        raise ValueError(f"model family must be one of {MODEL_FAMILIES}, not {family!r}")
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        if family == "full":
+            f, L = config.full, config.frame_length
+            return (FullUNetGenerator(frame_length=L, levels=f.levels,
+                                      base_channels=f.base_channels),
+                    FullDiscriminator(frame_length=L, levels=f.levels,
+                                      base_channels=f.base_channels))
+        g, d = config.generator, config.discriminator
+        return (MiniGenerator(enc1_channels=g.enc1_channels,
+                              bottleneck_channels=g.bottleneck_channels,
+                              dec1_channels=g.dec1_channels, leaky_slope=g.leaky_slope,
+                              input_residual=g.input_residual, act_dtype=act_dtype),
+                MiniDiscriminator(conv1_channels=d.conv1_channels,
+                                  conv2_channels=d.conv2_channels,
+                                  leaky_slope=d.leaky_slope, act_dtype=act_dtype))
+
+
 class Trainer:
     def __init__(self, config: Optional[Config] = None, nonlinear: bool = False,
                  pa_saturation: float = 0.8, samples_per_epoch: Optional[int] = None,
                  val_samples: int = 1_000, seed: int = 0,
                  device: str | torch.device | None = None, ema_decay: float = 0.0,
                  image_dir: Optional[str] = None, image_chunks: bool = False,
-                 samples_per_image: int = 10):
+                 samples_per_image: int = 10, generator: Optional[torch.nn.Module] = None,
+                 discriminator: Optional[torch.nn.Module] = None,
+                 fused_decoder: bool = False, act_dtype=None,
+                 matmul_precision: str = "float32"):
         """Runs on the GPU unless ``device`` says otherwise (``"cpu"``).
         ``ema_decay > 0`` keeps an EMA of the generator, updated after every
         outer step; ``image_dir`` trains on image-derived frames
-        (``image_chunks``: the chunk dataset) instead of synthetic ones."""
+        (``image_chunks``: the chunk dataset) instead of synthetic ones.
+        ``generator``/``discriminator`` replace the mini pair built from
+        ``seed``; ``fused_decoder`` (a float full U-Net only, float32 or
+        bfloat16 ``act_dtype``) trains through the fused decoder."""
         self.device = resolve_device(device)
         self.config = config or Config()
         tr = self.config.training
@@ -70,28 +114,38 @@ class Trainer:
         self.steps_per_epoch = max(1, spe // self.batch_size)
         self.val_batches = max(1, val_samples // self.batch_size)
 
-        g, d = self.config.generator, self.config.discriminator
-        with torch.random.fork_rng(devices=[]):
-            torch.manual_seed(seed)
-            self.generator = MiniGenerator(
-                enc1_channels=g.enc1_channels, bottleneck_channels=g.bottleneck_channels,
-                dec1_channels=g.dec1_channels, leaky_slope=g.leaky_slope,
-                input_residual=g.input_residual).to(self.device)
-            self.critic = MiniDiscriminator(
-                conv1_channels=d.conv1_channels, conv2_channels=d.conv2_channels,
-                leaky_slope=d.leaky_slope).to(self.device)
+        act_dtype = storage_dtype(act_dtype)
+        if generator is None or discriminator is None:
+            mini_g, mini_d = build_models(self.config, "mini", seed, act_dtype)
+            generator = mini_g if generator is None else generator
+            discriminator = mini_d if discriminator is None else discriminator
+        self.generator, self.critic = generator.to(self.device), discriminator.to(self.device)
+        gen_forward = None
+        if fused_decoder:
+            # reference trainer.py:254-281
+            if not isinstance(self.generator, FullUNetGenerator):
+                raise ValueError("fused_decoder is the float full-U-Net training forward "
+                                 "(--model full)")
+            if act_dtype in FP8_DTYPES:
+                raise ValueError("fused_decoder supports float32 or bfloat16 activation "
+                                 "storage (fp8 operands have no conv path)")
+            gen_forward = make_unet_infer_apply(
+                levels=self.generator.levels, leaky_slope=self.generator.leaky_slope,
+                act_dtype=act_dtype or torch.float32)
 
         self.image_dataset = self._image_dataset(image_dir, image_chunks, samples_per_image)
         batch_fn = self.image_dataset.sample_batch if self.image_dataset else None
         self.step = TrainStep(self.generator, self.critic, None, None, self.dg_cfg,
-                              self.loss_cfg, self.batch_size, batch_fn=batch_fn)
+                              self.loss_cfg, self.batch_size, batch_fn=batch_fn,
+                              gen_forward=gen_forward, act_dtype=act_dtype,
+                              matmul_precision=matmul_precision)
         self._fresh_optimizers()
         self._eval = make_eval_step(self.generator, self.dg_cfg, self.batch_size, batch_fn)
         self.rng = torch.Generator(device=self.device)
         self.rng.manual_seed(seed + 1)
 
         self.ema_decay = float(ema_decay)
-        self.ema_generator: Optional[MiniGenerator] = None
+        self.ema_generator: Optional[torch.nn.Module] = None
         if self.ema_decay > 0.0:
             self.ema_generator = copy.deepcopy(self.generator).requires_grad_(False)
 
@@ -188,7 +242,7 @@ class Trainer:
     # ---------------------------------------------------------- checkpoints
     def save_champion(self, path: str | Path) -> None:
         """The generator as a JAX-format ``.npz`` champion."""
-        save_params_tree(str(path), to_jax_params(self.generator.state_dict()))
+        save_params_tree(str(path), to_jax_params(self.generator))
 
     def load_champion(self, path: str | Path) -> None:
         self._load_module(self.generator, Path(path))
@@ -200,11 +254,10 @@ class Trainer:
         if path.exists():
             shutil.rmtree(path)
         path.mkdir(parents=True)
-        save_params_tree(str(path / "params_g.npz"), to_jax_params(self.generator.state_dict()))
-        save_params_tree(str(path / "params_d.npz"), to_jax_params(self.critic.state_dict()))
+        save_params_tree(str(path / "params_g.npz"), to_jax_params(self.generator))
+        save_params_tree(str(path / "params_d.npz"), to_jax_params(self.critic))
         if self.ema_generator is not None:
-            save_params_tree(str(path / "ema_params_g.npz"),
-                             to_jax_params(self.ema_generator.state_dict()))
+            save_params_tree(str(path / "ema_params_g.npz"), to_jax_params(self.ema_generator))
         torch.save({"opt_g": self.opt_g.opt.state_dict(), "sched_g": self.opt_g.sched.state_dict(),
                     "opt_d": self.opt_d.opt.state_dict(), "sched_d": self.opt_d.sched.state_dict()},
                    path / "optimizer.pt")
@@ -284,7 +337,8 @@ class Trainer:
               f"{self.steps_per_epoch} steps/epoch | n_critic {self.loss_cfg.n_critic} | "
               f"gp {self.loss_cfg.gp_weight} | rec {self.loss_cfg.rec_weight} | "
               f"device {self.device} | datagen {self.step.datagen_route} | "
-              f"critic {self.step.critic_route}", flush=True)
+              f"critic {self.step.critic_route} | "
+              f"precision {self.step.matmul_precision}", flush=True)
         t0 = time.time()
         try:
             for epoch in range(self.current_epoch, epochs):

@@ -31,21 +31,46 @@ never replaced by the plain route. ``reference=True`` makes both routes
 plain (the reference step with both flags off); tests and ``chip_smoke.py``
 hold the two against each other. ``n_critic == 0`` is the supervised path:
 no critic update, no adversarial term.
+
+Three settings follow the reference's ``build_train_step``:
+
+* ``gen_forward(generator, noisy)`` replaces the generator module's forward
+  inside the step (the trainer's ``train_gen_apply``, reference
+  ``trainer.py:274-280``: the full U-Net's fused decoder); validation and
+  checkpoints keep the module;
+* ``act_dtype`` casts the step's batch to a storage format (reference
+  ``wgan_gp.py:317-326``; the mini pair stores its activations in it too);
+* ``matmul_precision`` (``MATMUL_PRECISIONS``) is scoped to the step
+  (``matmul_precision``): ``float32``, the default, keeps TF32 off for
+  matrix products and cuDNN convolutions; ``tensorfloat32`` turns both on;
+  ``bfloat16`` runs the step under ``torch.autocast`` with bf16 operands
+  (products accumulate in float32 but return bf16, where the reference's
+  return float32: held to the reference's bf16 tolerance);
+  ``bf16_tf32gp`` and ``bf16_f32gp`` keep the gradient-penalty chain out of
+  the autocast, at TF32 or float32 (reference ``wgan_gp.py:130-134,
+  260-266``). The flags are restored when the step returns.
+
+The critic kernel computes the float32 mini critic, so its route is
+``kernel`` only with no ``act_dtype`` and ``float32`` precision.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 from typing import Callable, Dict, List, Optional
 
 import torch
 from torch import nn
 
 from ..models.critic import compute_gradient_penalty
+from ..models.generator import FP8_DTYPES, as_dtype, storage_dtype
 from ..ops import critic_kernel, datagen_kernel
 from ..signal.datagen import DatagenConfig, synthetic_batch
 from .schedules import AdamStepLR
 
+MATMUL_PRECISIONS = ("float32", "tensorfloat32", "bfloat16", "bf16_tf32gp", "bf16_f32gp")
 METRIC_KEYS = ("d_loss", "wasserstein_distance", "gradient_penalty", "d_real_mean",
                "d_fake_mean", "g_loss", "adv_loss", "rec_loss")
 
@@ -61,23 +86,53 @@ class LossConfig:
     fresh_critic_batches: bool = False  # the reference reuses one batch per outer step
 
 
-def critic_loss_fn(critic: nn.Module, generator: nn.Module, batch, alpha: torch.Tensor,
-                   cfg: LossConfig):
-    """L_D and its metrics; ``alpha`` ``[B]`` are the penalty's uniforms."""
+@contextlib.contextmanager
+def matmul_precision(mode: str, device_type: str):
+    """The step's numerics ``mode`` (``MATMUL_PRECISIONS``) on ``device_type``
+    while the block runs; the TF32 flags are restored after it."""
+    if mode not in MATMUL_PRECISIONS:
+        raise ValueError(f"matmul_precision must be one of {MATMUL_PRECISIONS}, not {mode!r}")
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    tf32 = mode in ("tensorfloat32", "bf16_tf32gp")
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = tf32
+    try:
+        with torch.autocast(device_type, dtype=torch.bfloat16, enabled=mode.startswith("bf")):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
+
+
+def gp_precision(mode: str, device_type: str):
+    """The gradient-penalty chain's context inside the step: out of the
+    autocast in the mixed modes (its TF32 flags are the step's)."""
+    if mode in ("bf16_tf32gp", "bf16_f32gp"):
+        return torch.autocast(device_type, enabled=False)
+    return contextlib.nullcontext()
+
+
+def critic_loss_fn(critic: nn.Module, generator: Callable, batch, alpha: torch.Tensor,
+                   cfg: LossConfig, gp_context=contextlib.nullcontext):
+    """L_D and its metrics; ``alpha`` ``[B]`` are the penalty's uniforms.
+    ``generator`` is the module or any training forward ``noisy -> fake``;
+    the penalty runs inside ``gp_context()``."""
     noisy, clean = batch["noisy"], batch["clean"]
     with torch.no_grad():
-        fake = generator(noisy)
+        # stored in the batch's format, as the reference does (wgan_gp.py:108)
+        fake = as_dtype(generator(noisy), noisy.dtype)
     d_real = critic(clean, noisy)
     d_fake = critic(fake, noisy)
     wasserstein = d_fake.mean() - d_real.mean()
-    gp = compute_gradient_penalty(critic, clean, fake, noisy, alpha)
-    loss = wasserstein + cfg.gp_weight * gp
+    with gp_context():
+        gp = compute_gradient_penalty(critic, clean, fake, noisy, alpha)
+    # the penalty is summed into the loss in float32 (a bf16 penalty too),
+    # as XLA's fused arithmetic does in the reference
+    loss = wasserstein + cfg.gp_weight * as_dtype(gp, torch.float32)
     aux = {"d_loss": loss, "wasserstein_distance": -wasserstein, "gradient_penalty": gp,
            "d_real_mean": d_real.mean(), "d_fake_mean": d_fake.mean()}
     return loss, {k: v.detach() for k, v in aux.items()}
 
 
-def generator_loss_fn(generator: nn.Module, critic: nn.Module, batch, cfg: LossConfig):
+def generator_loss_fn(generator: Callable, critic: nn.Module, batch, cfg: LossConfig):
     """L_G and its metrics; ``n_critic == 0`` skips the critic entirely."""
     noisy, clean = batch["noisy"], batch["clean"]
     fake = generator(noisy)
@@ -85,6 +140,8 @@ def generator_loss_fn(generator: nn.Module, critic: nn.Module, batch, cfg: LossC
         adv = torch.zeros((), device=fake.device)
     else:
         adv = -critic(fake, noisy).mean()
+    if clean.dtype in FP8_DTYPES:   # fp8 takes part in no promotion
+        clean = clean.to(fake.dtype)
     rec = (fake - clean).abs().mean()
     loss = cfg.adv_weight * adv + cfg.rec_weight * rec
     return loss, {"g_loss": loss.detach(), "adv_loss": adv.detach(), "rec_loss": rec.detach()}
@@ -99,17 +156,25 @@ def _apply_grads(module: nn.Module, opt: AdamStepLR, grads) -> None:
 class TrainStep:
     """One outer step on ``generator``/``critic`` in place; built by
     ``build_train_step``. ``batch_fn(rng, n)`` replaces the synthetic datagen
-    (reference ``wgan_gp.py:279-280``)."""
+    (reference ``wgan_gp.py:279-280``); ``gen_forward``, ``act_dtype`` and
+    ``matmul_precision`` as in the module's docstring."""
 
     def __init__(self, generator: nn.Module, critic: nn.Module, opt_g: AdamStepLR,
                  opt_d: AdamStepLR, dg_cfg: DatagenConfig, loss_cfg: LossConfig,
                  batch_size: int, reference: bool = False,
-                 batch_fn: Optional[Callable[[torch.Generator, int], dict]] = None):
+                 batch_fn: Optional[Callable[[torch.Generator, int], dict]] = None,
+                 gen_forward: Optional[Callable[[nn.Module, torch.Tensor], torch.Tensor]] = None,
+                 act_dtype=None, matmul_precision: str = "float32"):
         if loss_cfg.n_critic == 0 and loss_cfg.adv_weight != 0.0:
             raise ValueError("n_critic=0 (the supervised path) requires adv_weight=0: "
                              "with no critic updates an adversarial generator term "
                              "would train against a frozen random critic")
+        if matmul_precision not in MATMUL_PRECISIONS:
+            raise ValueError(f"matmul_precision must be one of {MATMUL_PRECISIONS}")
         self.generator, self.critic = generator, critic
+        self.gen_forward = gen_forward
+        self.act_dtype = storage_dtype(act_dtype)
+        self.matmul_precision = matmul_precision
         self.opt_g, self.opt_d = opt_g, opt_d
         self.dg_cfg, self.loss_cfg = dg_cfg, loss_cfg
         self.batch_size = batch_size
@@ -126,7 +191,9 @@ class TrainStep:
         kernel where it covers the configuration."""
         self._reference = bool(value)
         kernel_data = not value and self.batch_fn is None and datagen_kernel.covers(self.dg_cfg)
-        kernel_critic = not value and critic_kernel.covers(self.critic, self.dg_cfg.frame_length)
+        kernel_critic = (not value and self.act_dtype is None
+                         and self.matmul_precision == "float32"
+                         and critic_kernel.covers(self.critic, self.dg_cfg.frame_length))
         self.datagen_route = "kernel" if kernel_data else "plain"
         self.critic_route = "kernel" if kernel_critic else "plain"
 
@@ -147,17 +214,26 @@ class TrainStep:
             alphas.append(torch.rand((self.batch_size,), generator=rng, device=rng.device))
         return self.run(batch0, alphas, critic_batches or None)
 
+    def forward(self, noisy: torch.Tensor) -> torch.Tensor:
+        """The generator's training forward."""
+        if self.gen_forward is None:
+            return self.generator(noisy)
+        return self.gen_forward(self.generator, noisy)
+
     def critic_update(self, batch, alpha: torch.Tensor) -> Dict[str, torch.Tensor]:
         if self.critic_route == "kernel":
             noisy, clean = batch["noisy"], batch["clean"]
             with torch.no_grad():
-                fake = self.generator(noisy)
+                fake = self.forward(noisy)
             grads, aux = critic_kernel.critic_grad(
                 self.critic, clean, fake, noisy, alpha, self.loss_cfg.gp_weight,
                 self.critic.leaky_slope)
             grads = [grads[name] for name, _ in self.critic.named_parameters()]
         else:
-            loss, aux = critic_loss_fn(self.critic, self.generator, batch, alpha, self.loss_cfg)
+            gp_context = functools.partial(gp_precision, self.matmul_precision,
+                                           batch["noisy"].device.type)
+            loss, aux = critic_loss_fn(self.critic, self.forward, batch, alpha, self.loss_cfg,
+                                       gp_context)
             grads = torch.autograd.grad(loss, list(self.critic.parameters()))
         _apply_grads(self.critic, self.opt_d, grads)
         return aux
@@ -167,16 +243,22 @@ class TrainStep:
         """The step from given draws: the outer batch, one ``alpha`` ``[B]``
         per critic update and, with ``fresh_critic_batches``, one batch per
         critic update. Returns the last critic update's metrics and the
-        generator's, as 0-d tensors."""
+        generator's, as 0-d tensors. ``act_dtype`` casts the outer batch
+        alone, as the reference does."""
         if len(alphas) != self.loss_cfg.n_critic:
             raise ValueError(f"expected {self.loss_cfg.n_critic} alphas, got {len(alphas)}")
-        zero = torch.zeros((), device=batch0["noisy"].device)
+        device = batch0["noisy"].device
+        if self.act_dtype is not None:
+            batch0 = {**batch0, "noisy": batch0["noisy"].to(self.act_dtype),
+                      "clean": batch0["clean"].to(self.act_dtype)}
+        zero = torch.zeros((), device=device)
         d_aux = {k: zero for k in METRIC_KEYS[:5]}
-        for i, alpha in enumerate(alphas):
-            d_aux = self.critic_update(critic_batches[i] if critic_batches else batch0, alpha)
-        g_loss, g_aux = generator_loss_fn(self.generator, self.critic, batch0, self.loss_cfg)
-        _apply_grads(self.generator, self.opt_g,
-                     torch.autograd.grad(g_loss, list(self.generator.parameters())))
+        with matmul_precision(self.matmul_precision, device.type):
+            for i, alpha in enumerate(alphas):
+                d_aux = self.critic_update(critic_batches[i] if critic_batches else batch0, alpha)
+            g_loss, g_aux = generator_loss_fn(self.forward, self.critic, batch0, self.loss_cfg)
+            _apply_grads(self.generator, self.opt_g,
+                         torch.autograd.grad(g_loss, list(self.generator.parameters())))
         return {**d_aux, **g_aux}
 
 

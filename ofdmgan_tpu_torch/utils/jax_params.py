@@ -1,5 +1,13 @@
 """Weight bridge between flax parameter trees and torch ``state_dict``s.
 
+Key tables cover the mini pair (``MiniGenerator``, ``MiniDiscriminator``)
+and the full U-Net family at any depth (``FullUNetGenerator``:
+``params/<layer>/{kernel,bias}`` for each of ``full_unet_layer_names``;
+``FullDiscriminator``: ``params/conv<i>/...`` and ``params/dense/...``).
+``from_jax_params`` picks the table by the flax paths, which differ
+between the families; ``to_jax_params`` takes the module and picks it by
+the module's type (a two-level full critic has the mini critic's torch
+keys).
 Conv kernels are flax ``[K, C_in, C_out]`` and torch ``[C_out, C_in, K]``;
 the dense kernel is flax ``[in, out]`` and torch ``[out, in]``. Both maps are
 transposes, so each direction is the inverse of the other (and of
@@ -8,11 +16,15 @@ transposes, so each direction is the inverse of the other (and of
 
 from __future__ import annotations
 
+import re
 from typing import Any, Dict
 
 import numpy as np
 import torch
+from torch import nn
 
+from ..models import MiniDiscriminator, MiniGenerator
+from ..models.full_unet import FullDiscriminator, FullUNetGenerator, full_unet_layer_names
 from .params_io import flatten_tree, unflatten_tree
 
 # torch state_dict key -> flax tree path, for MiniGenerator and MiniDiscriminator
@@ -45,11 +57,49 @@ def _swap_layout(a: np.ndarray) -> np.ndarray:
     return np.ascontiguousarray(a)
 
 
+def _layer_keys(layers) -> Dict[str, str]:
+    return {f"{layer}.{t}": f"params/{layer}/{f}" for layer in layers
+            for t, f in (("weight", "kernel"), ("bias", "bias"))}
+
+
+def full_generator_keys(levels: int) -> Dict[str, str]:
+    """The table of a ``levels``-deep ``FullUNetGenerator``."""
+    return _layer_keys(full_unet_layer_names(levels))
+
+
+def full_critic_keys(levels: int) -> Dict[str, str]:
+    """The table of a ``levels``-deep ``FullDiscriminator``."""
+    return _layer_keys([f"conv{i+1}" for i in range(levels)] + ["dense"])
+
+
+def _depth(paths, pattern: str) -> int:
+    """The number of distinct layers ``pattern`` (with one group: the level) matches."""
+    return len({m.group(1) for p in paths if (m := re.fullmatch(pattern, p))})
+
+
 def _keys_for(paths) -> Dict[str, str]:
-    for table in (GENERATOR_KEYS, CRITIC_KEYS):
-        if set(paths) == set(table.values()) or set(paths) == set(table):
+    """The table whose flax paths are exactly ``paths``."""
+    paths = set(paths)
+    tables = (GENERATOR_KEYS, CRITIC_KEYS,
+              full_generator_keys(_depth(paths, r"params/enc(\d+)_1/kernel")),
+              full_critic_keys(_depth(paths, r"params/conv(\d+)/kernel")))
+    for table in tables:
+        if paths == set(table.values()):
             return table
-    raise ValueError(f"not a MiniGenerator or MiniDiscriminator tree: {sorted(paths)}")
+    raise ValueError(f"not a tree of the mini pair or the full U-Net family: {sorted(paths)}")
+
+
+def keys_of(module: nn.Module) -> Dict[str, str]:
+    """The key table of a model of the port, by its type."""
+    if isinstance(module, MiniGenerator):
+        return GENERATOR_KEYS
+    if isinstance(module, MiniDiscriminator):
+        return CRITIC_KEYS
+    if isinstance(module, FullUNetGenerator):
+        return full_generator_keys(module.levels)
+    if isinstance(module, FullDiscriminator):
+        return full_critic_keys(module.levels)
+    raise ValueError(f"no JAX key table for {type(module).__name__}")
 
 
 def from_jax_params(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
@@ -60,9 +110,9 @@ def from_jax_params(tree: Dict[str, Any]) -> Dict[str, torch.Tensor]:
             for k, p in table.items()}
 
 
-def to_jax_params(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Any]:
-    """torch ``state_dict`` -> flax tree with numpy float32 leaves."""
-    table = _keys_for(state_dict)
+def to_jax_params(module: nn.Module) -> Dict[str, Any]:
+    """A model of the port -> flax tree with numpy float32 leaves."""
+    table, state_dict = keys_of(module), module.state_dict()
     return unflatten_tree({
         p: _swap_layout(state_dict[k].detach().cpu().numpy().astype(np.float32))
         for k, p in table.items()})

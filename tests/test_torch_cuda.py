@@ -11,7 +11,10 @@ Tolerances: the datagen kernel rtol 1e-5, atol 1e-6 at every frame length
 (the same float32 arithmetic; fused multiply-adds round differently, and the
 phase scan and the frame reductions sum in another order). The
 critic-gradient kernel rtol 1e-4, atol 1e-4 of each tensor's largest entry:
-it sums the batch in another order.
+it sums the batch in another order. The full U-Net family: the fused
+decoder within atol 1e-5 of the module's tanh output at float32; a full
+step on the kernel route and the reference step, each tensor's update
+within 1e-3 of its largest entry, as for the mini step.
 """
 
 import copy
@@ -207,4 +210,81 @@ def test_routes_by_scope_on_the_card(cuda, dg, conv1, launched):
     metrics = step(torch.Generator(device=cuda).manual_seed(1))
     torch.cuda.synchronize()
     assert (dk.launches - before[0], ck.launches - before[1]) == launched
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+
+
+def _full_step(cuda, reference=False, fused=False, precision="float32", L=64):
+    from ofdmgan_tpu_torch.models.full_unet import FullDiscriminator, FullUNetGenerator
+    from ofdmgan_tpu_torch.models.unet_infer import make_unet_infer_apply
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        g = FullUNetGenerator(frame_length=L, levels=3, base_channels=8).to(cuda)
+        d = FullDiscriminator(frame_length=L, levels=3, base_channels=8).to(cuda)
+    fwd = make_unet_infer_apply(levels=3, act_dtype=torch.float32) if fused else None
+    return TrainStep(g, d, make_adam(g.parameters(), 2e-4), make_adam(d.parameters(), 2e-4),
+                     sdg.DatagenConfig(frame_length=L), LossConfig(), 32, reference=reference,
+                     gen_forward=fwd, matmul_precision=precision)
+
+
+@pytest.mark.parametrize("fused", [False, True])
+def test_full_step_routes_and_matches_the_reference_step(cuda, fused):
+    """The full pair at a small size (levels 3, base 8, L = 64): one datagen
+    launch and no critic launch per outer step; from a warmed-up state the
+    kernel route's step and the reference step on the same draws agree
+    within 1e-3 of each tensor's largest update (cuDNN may sum the weight
+    gradients in another order)."""
+    plain = _full_step(cuda, reference=True, fused=fused)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    for _ in range(3):
+        plain(gen)
+    kern = copy.deepcopy(plain)
+    kern.reference = False
+    assert (kern.datagen_route, kern.critic_route) == ("kernel", "plain")
+    before = (dk.launches, ck.launches)
+    metrics = kern(gen)
+    torch.cuda.synchronize()
+    assert (dk.launches - before[0], ck.launches - before[1]) == (1, 0)
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
+    plain = copy.deepcopy(kern)
+    plain.reference = True
+    start = [p.detach().clone() for m in (kern.generator, kern.critic) for p in m.parameters()]
+    draws = sdg.make_draws(gen, 32, 64)
+    alphas = [torch.rand(32, generator=gen, device=cuda) for _ in range(5)]
+    cfg = sdg.DatagenConfig(frame_length=64)
+    kern.run(dk.synthetic_batch_from_draws(draws, cfg), alphas)
+    plain.run(sdg.synthetic_batch_from_draws(draws, cfg), alphas)
+    after_k = [p for m in (kern.generator, kern.critic) for p in m.parameters()]
+    after_p = [p for m in (plain.generator, plain.critic) for p in m.parameters()]
+    for p0, a, b in zip(start, after_p, after_k):
+        step_p, step_k = (a - p0).detach(), (b - p0).detach()
+        torch.testing.assert_close(step_k, step_p, rtol=0,
+                                   atol=1e-3 * float(step_p.abs().max()) + 1e-9)
+
+
+@pytest.mark.parametrize("L,levels,base,b", [(64, 3, 8, 32), (1024, 5, 32, 8)])
+def test_fused_decoder_matches_the_unfused_forward_on_the_card(cuda, L, levels, base, b):
+    """Float32 with TF32 off: the fused k = 2-pair decoder within atol 1e-5
+    of the module's tanh output (tests/test_unet_infer.py:42-43)."""
+    from ofdmgan_tpu_torch.models.full_unet import FullUNetGenerator
+    from ofdmgan_tpu_torch.models.unet_infer import make_unet_infer_apply
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(1)
+        g = FullUNetGenerator(frame_length=L, levels=levels, base_channels=base).to(cuda)
+    x = torch.randn(b, L, 2, generator=torch.Generator(device=cuda).manual_seed(2), device=cuda)
+    with torch.no_grad():
+        fused = make_unet_infer_apply(levels=levels, act_dtype=torch.float32)(g, x)
+        torch.testing.assert_close(fused, g(x), rtol=0, atol=1e-5)
+        bf16 = make_unet_infer_apply(levels=levels, act_dtype=torch.bfloat16)(g, x)
+    assert bf16.dtype == torch.bfloat16 and float((bf16.float() - fused).abs().max()) < 0.05
+
+
+@pytest.mark.parametrize("precision", ["tensorfloat32", "bfloat16", "bf16_tf32gp", "bf16_f32gp"])
+def test_precision_modes_on_the_card_restore_the_flags(cuda, precision):
+    step = _full_step(cuda, precision=precision)
+    assert step.critic_route == "plain"
+    flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    assert flags == (False, False)
+    metrics = step(torch.Generator(device=cuda).manual_seed(3))
+    torch.cuda.synchronize()
+    assert (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == flags
     assert all(bool(torch.isfinite(v)) for v in metrics.values())

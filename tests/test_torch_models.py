@@ -51,7 +51,9 @@ def test_bridge_round_trip(which):
     x0 = jnp.zeros((1, 16, 2))
     tree = (JGen().init(KEY, x0) if which == "generator" else JCritic().init(KEY, x0, x0))
     tree = jax.tree_util.tree_map(np.asarray, tree)
-    back = flatten_tree(to_jax_params(from_jax_params(tree)))
+    module = MiniGenerator() if which == "generator" else MiniDiscriminator()
+    module.load_state_dict(from_jax_params(tree))
+    back = flatten_tree(to_jax_params(module))
     ref = flatten_tree(tree)
     assert back.keys() == ref.keys()
     for k in ref:

@@ -118,7 +118,7 @@ class Pair:
     def assert_params_close(self, atol):
         for mod, jp in ((self.g, self.jstate.params_g), (self.d, self.jstate.params_d)):
             ref = flatten_tree(jax.tree_util.tree_map(np.asarray, jp))
-            got = flatten_tree(to_jax_params(mod.state_dict()))
+            got = flatten_tree(to_jax_params(mod))
             for k in ref:
                 np.testing.assert_allclose(got[k], ref[k], rtol=0, atol=atol, err_msg=k)
 
