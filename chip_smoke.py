@@ -14,7 +14,15 @@ step takes neither kernel. Phase ``full`` trains the full U-Net pair
 two epochs of four outer steps through the datagen kernel and the autograd
 critic in float32 with TF32 off; checks that its kernel step and its
 reference step agree, and that the fused decoder computes the module's
-forward; and times the step fused and unfused. Every phase prints one
+forward; and times the step fused and unfused. Phase ``quant`` trains the
+mini pair under quantization-aware training, ``qat`` and then
+``rtl_faithful`` with the residual head (the RTL-residual datapath), each
+2 x 20 steps through both kernels, and the full U-Net under
+``quant_bits`` 8 16 (2 x 4 steps through the datagen kernel); checks each
+run's FPGA export, the Verilog ROM's round trip, and the bit-true integer
+datapath on the card against the same call on the CPU and against the
+native engine ``native/fixsim.cpp`` (built with g++); and times the QAT
+steps against the float ones. Every phase prints one
 JSON line with its wall seconds as it ends. Any failed check raises, and the
 script exits non-zero. The last lines are the kernel table, the card's name
 and power limit, and the result line.
@@ -53,7 +61,15 @@ the fused decoder within atol 1e-5 of the module's tanh output (the bound
 of ``tests/test_unet_infer.py``). Its step times are host clocks around
 five steps ending in a synchronize, after two warm-up steps, unfused,
 fused, fused, unfused; FLOP per step are counted by ``step_flops`` from
-the layer shapes.
+the layer shapes. Phase ``quant``: the QAT kernel step and reference step
+on one batch, the kernel datagen's (so that both see the same Q8.8
+rounding boundaries), within 1e-3 of each tensor's largest update, as
+above; the integer datapath bit for bit (``torch.equal``) on 2^18 frames.
+Its mini step times are host clocks around 50 steps ending in a
+synchronize, float, QAT, QAT, float; its full step time is taken as phase
+``full`` takes its own, with cuDNN's default algorithms, and its device
+time by kind of kernel (``torch.profiler``, one step) beside that of the
+same weights with quantization off, in the same process.
 """
 
 from __future__ import annotations
@@ -88,6 +104,9 @@ FULL_G_MACS, FULL_D_MACS = 200_048_640, 23_790_080   # per frame, unfused genera
 DATAGEN_EXACT_RATIO = 1.5  # full: kernel's worst error from float64 over its plain version's
 FULL_METRIC_RTOL = 1e-3    # full step's metrics on the kernel's vs the FFT datagen's batch
 FUSED_ATOL = 1e-5          # fused against unfused decoder, tanh output (tests/test_unet_infer.py)
+QUANT_FRAMES = 1 << 18     # integer datapath: card against CPU and against fixsim
+QUANT_FULL_BITS = (8, 16)  # --quant_bits of the full U-Net run
+FULL_EXPORT_LAYERS = 23    # levels 5: 10 encoder, 2 bottleneck, 10 decoder, final
 TRAIN_LOG_KEYS = {"train/d_loss", "train/g_loss", "train/wasserstein", "train/rec_loss",
                   "train/gp", "val/rec_loss", "val/mse"}   # the reference's log keys
 
@@ -131,25 +150,74 @@ def back_to_back_us_per_launch(fn, args, n: int = 200) -> float:
     return start.elapsed_time(end) / n * 1e3
 
 
-def profiled_us_per_call(fn, kernel: str, n: int = 20) -> float:
-    """Device microseconds per call of ``fn`` spent in kernels whose name
-    holds ``kernel``: torch.profiler's kernel times summed over ``n`` calls."""
-    from torch.profiler import ProfilerActivity, profile
-    for _ in range(3):
-        fn()
+def profiled(fn, n: int):
+    """``torch.profiler``'s events of ``n`` calls of ``fn``, after one call
+    that is traced and dropped: the profiler misses the first kernel of a
+    session (one datagen launch of each trace that had none before it)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
-    us = 0.0
-    for evt in prof.key_averages():
-        if kernel in evt.key and evt.device_type != torch.autograd.DeviceType.CPU:
-            us += float(getattr(evt, "self_device_time_total",
-                                getattr(evt, "self_cuda_time_total", 0.0)))
+        prof.step()
+    return prof.key_averages()
+
+
+def device_us(evt) -> float:
+    return float(getattr(evt, "self_device_time_total", getattr(evt, "self_cuda_time_total", 0)))
+
+
+def profiled_us_per_call(fn, kernel: str, n: int = 20) -> float:
+    """Device microseconds per call of ``fn`` spent in kernels whose name
+    holds ``kernel``: torch.profiler's kernel times summed over ``n`` calls."""
+    for _ in range(3):
+        fn()
+    us = sum(device_us(evt) for evt in profiled(fn, n)
+             if kernel in evt.key and evt.device_type != torch.autograd.DeviceType.CPU)
     if us <= 0:
         raise RuntimeError(f"the profiler traced no device time for {kernel}")
     return us / n
+
+
+# kinds of kernel by the words their names hold: the categories of
+# scripts/torch_step_profile.py, with ATen's reductions apart
+KERNEL_KINDS = (("datagen_kernel", ("datagen_kernel",)), ("critic_grad", ("critic_grad",)),
+                ("adam", ("adam", "multi_tensor")), ("reduce", ("at::native::reduce_kernel",)),
+                ("conv", ("conv", "cudnn", "xmma", "gemm", "implicit", "wgrad", "dgrad", "sm90",
+                          "cutlass", "winograd", "fft")),
+                ("copy_and_elementwise", ("elementwise", "copy", "memcpy", "memset", "fill",
+                                          "index", "cat", "pad")))
+
+
+def kernel_kind(name: str) -> str:
+    name = name.lower()
+    return next((c for c, words in KERNEL_KINDS if any(w in name for w in words)), "other")
+
+
+def device_ms_by_kind(step, rng, n: int = 1) -> dict:
+    """Device ms per outer step of ``step`` by kind of kernel
+    (``KERNEL_KINDS``) and by kernel, and ATen calls per step, from
+    ``torch.profiler`` over ``n`` steps."""
+    events = profiled(lambda: step(rng), n)
+    by_kernel = {}
+    for evt in events:
+        # kernels and copies only: a user annotation spans kernels and gaps
+        if (device_us(evt) > 0 and evt.device_type != torch.autograd.DeviceType.CPU
+                and not getattr(evt, "is_user_annotation", False) and "#" not in evt.key):
+            by_kernel[evt.key] = device_us(evt) / n / 1e3
+    if not by_kernel:
+        raise RuntimeError("the profiler traced no device time for the full step")
+    by_kind = {}
+    for k, ms in by_kernel.items():
+        by_kind[kernel_kind(k)] = by_kind.get(kernel_kind(k), 0.0) + ms
+    aten = sum(e.count for e in events if e.key.startswith("aten::"))
+    return {"total": sum(by_kernel.values()), "by_kind": by_kind, "by_kernel": by_kernel,
+            "aten_calls": aten / n}
 
 
 def max_err(got: dict, ref: dict, keys) -> float:
@@ -237,6 +305,66 @@ def all_params(model) -> dict:
             **{f"critic.{n}": p for n, p in model.critic.named_parameters()}}
 
 
+def timed_steps(step, rng, n: int = 5, warmup: int = 2) -> tuple[float, int]:
+    """(host ms per outer step over ``n`` steps ending in a synchronize,
+    after ``warmup`` steps; peak device memory of those steps)."""
+    for _ in range(warmup):
+        step(rng)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    for _ in range(n):
+        step(rng)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t) / n * 1e3, torch.cuda.max_memory_allocated()
+
+
+def trained(trainer, name: str, want_routes: dict, want_launches: dict,
+            keys=TRAIN_LOG_KEYS) -> dict:
+    """Train ``trainer`` two epochs with every launch count set to 0 first;
+    check its routes, its launch counts and that its metrics are finite
+    under the log ``keys``. Returns the run's fields."""
+    from ofdmgan_tpu_torch.ops import critic_kernel as ck, datagen_kernel as dk
+    routes = {"datagen": trainer.step.datagen_route, "critic": trainer.step.critic_route}
+    if routes != want_routes:
+        raise AssertionError(f"the {name} run took the routes {routes}")
+    dk.launches = 0
+    ck.launches = 0
+    t_train = time.time()
+    history = trainer.train(epochs=2, experiment_name=f"chip_smoke_{name}")
+    torch.cuda.synchronize()
+    train_s = time.time() - t_train
+    launches = {"datagen": dk.launches, "critic_grad": ck.launches}
+    if launches != want_launches:
+        raise AssertionError(f"the {name} run launched {launches}, not {want_launches}")
+    if (len(history) != 2 or any(set(rec) != keys for rec in history)
+            or not all(math.isfinite(v) for rec in history for v in rec.values())):
+        raise AssertionError(f"non-finite or missing {name} training metrics: {history}")
+    return {"routes": routes, "launches": launches, "train_s": round(train_s, 3),
+            "history": history}
+
+
+def check_bundle(export_dir: str) -> int:
+    """The layers of the export bundle in ``export_dir``, after checking that
+    every file of its metadata exists with the size its shapes give and that
+    every weight file's CRC32 recomputes."""
+    import binascii
+    from pathlib import Path
+    d = Path(export_dir)
+    meta = json.loads((d / "metadata.json").read_text())
+    for name, info in meta["layers"].items():
+        data = (d / info["weight_file"]).read_bytes()
+        if len(data) != math.prod(info["weight_shape"]):
+            raise AssertionError(f"{name}: {len(data)} weight bytes for {info['weight_shape']}")
+        if f"{binascii.crc32(data) & 0xFFFFFFFF:08x}" != info["crc32"]:
+            raise AssertionError(f"{name}: the CRC32 of {info['weight_file']} does not recompute")
+        n_out = info["weight_shape"][0]
+        for key, size in ((info["scale_file"], 4 * n_out), (info["bias"]["file"], 4 * n_out)):
+            if (d / key).stat().st_size != size:
+                raise AssertionError(f"{name}: {key} is not {size} bytes")
+    return len(meta["layers"])
+
+
 def train_scope(dev, gen, steps: int) -> dict:
     """Phase ``train_scope``: the mini recipe at its full width (batch 64,
     n_critic 5) outside the datagen kernel's scope, then one step outside
@@ -250,30 +378,16 @@ def train_scope(dev, gen, steps: int) -> dict:
     # a fading, fully impaired run: multipath, Rapp PA -> IQ -> phase noise,
     # an EMA, a checkpoint every epoch
     base = Config(checkpoint_dir="build/chip_smoke/scope/checkpoints",
-                  log_dir="build/chip_smoke/scope/logs")
+                  log_dir="build/chip_smoke/scope/logs", export_dir="build/chip_smoke/scope/export")
     cfg = dataclasses.replace(base, channel_type="multipath", training=dataclasses.replace(
         base.training, checkpoint_interval=1))
     tr = cfg.training
     kw = dict(nonlinear=True, samples_per_epoch=steps * tr.batch_size, val_samples=256, seed=0,
               device="cuda", ema_decay=0.999)
     trainer = Trainer(cfg, **kw)
-    routes = {"datagen": trainer.step.datagen_route, "critic": trainer.step.critic_route}
-    if routes != {"datagen": "plain", "critic": "kernel"}:
-        raise AssertionError(f"the multipath run took the routes {routes}")
-    dk.launches = 0
-    ck.launches = 0
-    t_train = time.time()
-    history = trainer.train(epochs=2, experiment_name="chip_smoke_scope")
-    torch.cuda.synchronize()
-    train_s = time.time() - t_train
-    launches = {"datagen": dk.launches, "critic_grad": ck.launches}
-    want = {"datagen": 0, "critic_grad": tr.n_critic * 2 * steps}
-    if launches != want:
-        raise AssertionError(f"the multipath run launched {launches}, not {want}")
-    keys = TRAIN_LOG_KEYS | {"val/rec_loss_ema", "val/mse_ema"}
-    if (len(history) != 2 or any(set(rec) != keys for rec in history)
-            or not all(math.isfinite(v) for rec in history for v in rec.values())):
-        raise AssertionError(f"non-finite or missing training metrics: {history}")
+    fading = trained(trainer, "scope", {"datagen": "plain", "critic": "kernel"},
+                     {"datagen": 0, "critic_grad": tr.n_critic * 2 * steps},
+                     TRAIN_LOG_KEYS | {"val/rec_loss_ema", "val/mse_ema"})
 
     # resume from the last epoch's checkpoint: the same step on the same draws
     resumed = Trainer(cfg, **{**kw, "seed": 1})
@@ -293,8 +407,7 @@ def train_scope(dev, gen, steps: int) -> dict:
     torch.cuda.synchronize()
     _, resume_rel = updates_agree(start, all_params(resumed), all_params(trainer), RESUME_RTOL,
                                   "resumed and uninterrupted steps")
-    out["fading"] = {"routes": routes, "launches": launches, "train_s": round(train_s, 3),
-                     "history": history, "resume_step_max_rel_diff": resume_rel}
+    out["fading"] = {**fading, "resume_step_max_rel_diff": resume_rel}
 
     # one step at L = 32 over a Rician channel: outside both kernels' scope
     cfg32 = dataclasses.replace(base, frame_length=32, channel_type="rician")
@@ -357,12 +470,12 @@ def full_phase(dev, gen) -> dict:
     from ofdmgan_tpu_torch.config import Config
     from ofdmgan_tpu_torch.models import count_parameters
     from ofdmgan_tpu_torch.models.unet_infer import make_unet_infer_apply
-    from ofdmgan_tpu_torch.ops import critic_kernel as ck, datagen_kernel as dk
+    from ofdmgan_tpu_torch.ops import datagen_kernel as dk
     from ofdmgan_tpu_torch.signal import datagen as sdg
     from ofdmgan_tpu_torch.training.trainer import Trainer, build_models
 
     base = Config(checkpoint_dir="build/chip_smoke/full/checkpoints",
-                  log_dir="build/chip_smoke/full/logs")
+                  log_dir="build/chip_smoke/full/logs", export_dir="build/chip_smoke/full/export")
     cfg = dataclasses.replace(base, frame_length=FULL_L,
                               training=dataclasses.replace(base.training, batch_size=FULL_B))
     g, d = build_models(cfg, "full", seed=0)
@@ -375,29 +488,14 @@ def full_phase(dev, gen) -> dict:
     g_macs_fused = g_macs - dec1_macs // 3   # dec*_1 at 8/12 of their multiply-adds
     trainer = Trainer(cfg, samples_per_epoch=FULL_STEPS * FULL_B, val_samples=FULL_B, seed=0,
                       device=dev, generator=g, discriminator=d)
-    routes = {"datagen": trainer.step.datagen_route, "critic": trainer.step.critic_route}
-    if routes != {"datagen": "kernel", "critic": "plain"}:
-        raise AssertionError(f"the full run took the routes {routes}")
-    dk.launches = 0
-    ck.launches = 0
-    t_train = time.time()
-    history = trainer.train(epochs=2, experiment_name="chip_smoke_full")
-    torch.cuda.synchronize()
-    train_s = time.time() - t_train
-    launches = {"datagen": dk.launches, "critic_grad": ck.launches}
-    if launches != {"datagen": 2 * FULL_STEPS, "critic_grad": 0}:
-        raise AssertionError(f"the full run launched {launches}, not {2 * FULL_STEPS} and 0")
-    if (len(history) != 2 or any(set(rec) != TRAIN_LOG_KEYS for rec in history)
-            or not all(math.isfinite(v) for rec in history for v in rec.values())):
-        raise AssertionError(f"non-finite or missing training metrics: {history}")
+    run = trained(trainer, "full", {"datagen": "kernel", "critic": "plain"},
+                  {"datagen": 2 * FULL_STEPS, "critic_grad": 0})
     flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     if flags != (False, False):
         raise AssertionError(f"TF32 was left on after the full run: {flags}")
     out = {"params": {"generator": counts[0], "critic": counts[1]},
            "macs_per_frame": {"generator": g_macs, "generator_fused": g_macs_fused,
-                              "critic": d_macs},
-           "routes": routes, "launches": launches, "train_s": round(train_s, 3),
-           "history": history}
+                              "critic": d_macs}, **run}
 
     # the datagen kernel at this path's shape, B = 512 and L = 1024, on one
     # set of draws, linear and with the default nonlinear chain. The kernel
@@ -491,24 +589,13 @@ def full_phase(dev, gen) -> dict:
 
     # step time, unfused and fused in turns (unfused, fused, fused, unfused),
     # each after two warm-up steps; peak memory of each
-    def timed(step, n: int = 5) -> tuple[float, int]:
-        for _ in range(2):
-            step(trainer.rng)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        t = time.perf_counter()
-        for _ in range(n):
-            step(trainer.rng)
-        torch.cuda.synchronize()
-        return (time.perf_counter() - t) / n * 1e3, torch.cuda.max_memory_allocated()
-
     fused_fwd = make_unet_infer_apply(levels=trainer.generator.levels, act_dtype=torch.float32)
     steps = {"unfused": clone_step(trainer, False),
              "fused": clone_step(trainer, False, gen_forward=fused_fwd)}
     ms = {"unfused": [], "fused": []}
     peak = {}
     for name in ("unfused", "fused", "fused", "unfused"):
-        t_ms, peak[name] = timed(steps[name])
+        t_ms, peak[name] = timed_steps(steps[name], trainer.rng)
         ms[name].append(t_ms)
     best = {k: min(v) for k, v in ms.items()}
     dg_cfg = trainer.dg_cfg
@@ -524,6 +611,150 @@ def full_phase(dev, gen) -> dict:
         "achieved_fp32_flop_per_s": {k: flops[k] / (best[k] / 1e3) for k in best},
         "share_of_fp32_peak": {k: flops[k] / (best[k] / 1e3) / FP32_FLOPS_PER_S for k in best},
     }
+    return out
+
+
+def quant_phase(dev, gen, float_trainer, full_times: dict) -> dict:
+    """Phase ``quant``: the mini pair under ``--qat`` and ``--rtl_qat
+    --residual``, then the full U-Net under ``--quant_bits 8 16``, each
+    trained through the kernels that cover it; the exports, the ROM and the
+    integer datapath; step times against the float steps. Returns the phase
+    line's fields."""
+    import numpy as np
+    from ofdmgan_tpu_torch.config import Config
+    from ofdmgan_tpu_torch.ops import datagen_kernel as dk
+    from ofdmgan_tpu_torch.quant import intsim, rom_codegen
+    from ofdmgan_tpu_torch.signal import datagen as sdg
+    from ofdmgan_tpu_torch.training.trainer import Trainer, build_models
+    from ofdmgan_tpu_torch.verify import cosim
+
+    out = {}
+    steps = 20
+    kernels = {"datagen": "kernel", "critic": "kernel"}
+    mini_launches = {"datagen": 2 * steps, "critic_grad": 2 * steps * 5}
+    runs = {}
+    for name, kw, residual in (("qat", dict(qat=True), False),
+                               ("rtl_qat_residual", dict(qat=True, rtl_faithful=True), True)):
+        base = Config(checkpoint_dir=f"build/chip_smoke/quant/{name}/checkpoints",
+                      log_dir=f"build/chip_smoke/quant/{name}/logs",
+                      export_dir=f"build/chip_smoke/quant/{name}/export")
+        cfg = dataclasses.replace(base, generator=dataclasses.replace(
+            base.generator, input_residual=residual))
+        g, d = build_models(cfg, "mini", seed=0, **kw)
+        trainer = Trainer(cfg, samples_per_epoch=steps * cfg.training.batch_size,
+                          val_samples=256, seed=0, device=dev, generator=g, discriminator=d)
+        out[name] = trained(trainer, name, kernels, mini_launches)
+        out[name]["export_layers"] = check_bundle(f"{cfg.export_dir}/generator")
+
+        # the kernel step and the reference step on one batch, the kernel datagen's
+        batch = dk.synthetic_batch_from_draws(sdg.make_draws(gen, MAIN_B, 16), trainer.dg_cfg)
+        alphas = [torch.rand(MAIN_B, generator=gen, device=dev) for _ in range(5)]
+        step_k, step_p = clone_step(trainer, False), clone_step(trainer, True)
+        start = {n: p.detach().clone() for n, p in all_params(step_k).items()}
+        step_k.run(batch, alphas)
+        step_p.run(batch, alphas)
+        out[name]["step_update_max_abs_diff"], out[name]["step_update_max_rel_diff"] = \
+            updates_agree(start, all_params(step_k), all_params(step_p), STEP_RTOL,
+                          f"{name} kernel and reference steps")
+        runs[name] = trainer
+
+    # the RTL-residual generator: its ROM, its integer datapath on the card
+    # against the CPU and against fixsim, its float-against-integer L1
+    trainer = runs["rtl_qat_residual"]
+    g, d = trainer.generator, trainer.critic
+    rom_path = "build/chip_smoke/quant/weight_rom.v"
+    packed = rom_codegen.pack_rom_arrays(g, d)
+    written = rom_codegen.generate_rom_verilog(g, d, rom_path)
+    parsed = rom_codegen.parse_rom_verilog(rom_path)
+    if written != (720, 43) or not all(np.array_equal(a, b.astype(np.int32))
+                                       for a, b in zip(parsed, packed)):
+        raise AssertionError("the Verilog ROM does not parse back to the packed ROM images")
+    frames = dk.synthetic_batch(gen, QUANT_FRAMES, trainer.dg_cfg)
+    x_q, c_q = intsim.float_to_q88(frames["noisy"]), intsim.float_to_q88(frames["clean"])
+    ip, dp = intsim.quantize_weights_rtl(g), intsim.quantize_weights_rtl(d, "discriminator")
+    y = intsim.generator_int_forward(ip, x_q, "rtl_residual")
+    if y.device != x_q.device or not torch.equal(
+            y.cpu(), intsim.generator_int_forward(ip, x_q.cpu(), "rtl_residual")):
+        raise AssertionError("the integer generator on the card differs from the CPU's")
+    x_ncl = x_q.transpose(1, 2).cpu().numpy().astype(np.int16)
+    c_ncl = c_q.transpose(1, 2).cpu().numpy().astype(np.int16)
+    t = time.perf_counter()
+    y_fixsim = cosim.generator_forward(*packed, x_ncl, residual=True)
+    fixsim_s = time.perf_counter() - t
+    if not np.array_equal(y_fixsim, y.transpose(1, 2).cpu().numpy().astype(np.int16)):
+        raise AssertionError("the integer generator differs from fixsim's")
+    s = intsim.discriminator_int_forward(dp, c_q, x_q)
+    if not np.array_equal(cosim.discriminator_forward(*packed, c_ncl, x_ncl),
+                          s[:, 0].cpu().numpy().astype(np.int16)):
+        raise AssertionError("the integer critic differs from fixsim's")
+    with torch.no_grad():
+        y_float = g(frames["noisy"])
+    y_int = intsim.q88_to_float(y)
+    int_s = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        intsim.generator_int_forward(ip, x_q, "rtl_residual")
+        torch.cuda.synchronize()
+        int_s.append(time.perf_counter() - t)
+    out["int_datapath"] = {
+        "frames": QUANT_FRAMES,
+        "float_vs_int_l1": float((y_float - y_int).abs().mean()),
+        "int_l1_vs_clean": float((y_int - frames["clean"]).abs().mean()),
+        "float_l1_vs_clean": float((y_float - frames["clean"]).abs().mean()),
+        "card_frames_per_s": QUANT_FRAMES / statistics.median(int_s),
+        "fixsim_host_frames_per_s": QUANT_FRAMES / fixsim_s,
+    }
+    del frames, x_q, c_q, y, s, y_float, y_int
+
+    # QAT against float mini steps in one process: float, QAT, QAT, float
+    mini_ms = {"float": [], "qat": [], "rtl_qat_residual": []}
+    for name in ("float", "qat", "rtl_qat_residual", "rtl_qat_residual", "qat", "float"):
+        t_run = float_trainer if name == "float" else runs[name]
+        mini_ms[name].append(timed_steps(t_run.step, t_run.rng, n=50, warmup=5)[0])
+    out["mini_ms_per_step"] = mini_ms
+    del runs, trainer
+
+    # the full U-Net under --quant_bits 8 16 at full width
+    base = Config(checkpoint_dir="build/chip_smoke/quant/full/checkpoints",
+                  log_dir="build/chip_smoke/quant/full/logs",
+                  export_dir="build/chip_smoke/quant/full/export")
+    cfg = dataclasses.replace(base, frame_length=FULL_L,
+                              training=dataclasses.replace(base.training, batch_size=FULL_B))
+    g, d = build_models(cfg, "full", seed=0, quant_bits=QUANT_FULL_BITS)
+    trainer = Trainer(cfg, samples_per_epoch=FULL_STEPS * FULL_B, val_samples=FULL_B, seed=0,
+                      device=dev, generator=g, discriminator=d)
+    full = trained(trainer, "full_quant_bits", {"datagen": "kernel", "critic": "plain"},
+                   {"datagen": 2 * FULL_STEPS, "critic_grad": 0})
+    full["export_layers"] = check_bundle(f"{cfg.export_dir}/generator")
+    if full["export_layers"] != FULL_EXPORT_LAYERS:
+        raise AssertionError(f"the full export has {full['export_layers']} layers")
+    ms, peak = timed_steps(trainer.step, trainer.rng)
+    full["times"] = {"ms_per_step": ms, "max_memory_allocated_bytes": peak,
+                     "float_ms_per_step": full_times["ms_per_step"]["unfused"],
+                     "float_max_memory_allocated_bytes":
+                         full_times["max_memory_allocated_bytes"]["unfused"]}
+    # where the quantized step's time goes: device time by kind of kernel,
+    # the same weights without quantization against it, in this process
+    t_prof = time.time()
+    float_step = clone_step(trainer, False)
+    float_step.generator.weight_bits = float_step.generator.act_bits = 0
+    prof = {"float": device_ms_by_kind(float_step, trainer.rng),
+            "quant_bits": device_ms_by_kind(trainer.step, trainer.rng)}
+    del float_step
+    conv = {k: {n for n in v["by_kernel"] if kernel_kind(n) == "conv"} for k, v in prof.items()}
+    wall = {"float": min(full_times["ms_per_step"]["unfused"]), "quant_bits": ms}
+    full["device_ms_per_step"] = {
+        k: {"total": v["total"], "idle_share": 1 - v["total"] / wall[k],
+            "aten_calls": v["aten_calls"], "by_kind": v["by_kind"],
+            "top_kernels": {n[:120]: t for n, t in
+                            sorted(v["by_kernel"].items(), key=lambda kv: -kv[1])[:8]}}
+        for k, v in prof.items()}
+    full["conv_kernels_only_in"] = {
+        k: {n[:120]: prof[k]["by_kernel"][n] for n in conv[k] - conv[other]}
+        for k, other in (("float", "quant_bits"), ("quant_bits", "float"))}
+    full["profile_s"] = round(time.time() - t_prof, 3)
+    out["full_quant_bits"] = full
     return out
 
 
@@ -679,7 +910,8 @@ def main() -> int:
 
     # ---- 4. train through both kernels with the config defaults
     t = time.time()
-    cfg = Config(checkpoint_dir="build/chip_smoke/checkpoints", log_dir="build/chip_smoke/logs")
+    cfg = Config(checkpoint_dir="build/chip_smoke/checkpoints", log_dir="build/chip_smoke/logs",
+                 export_dir="build/chip_smoke/export")
     steps = 20
     trainer = Trainer(cfg, samples_per_epoch=steps * cfg.training.batch_size, val_samples=256,
                       seed=0, device="cuda")
@@ -725,7 +957,15 @@ def main() -> int:
     full = full_phase(dev, gen)
     log("full", t, **full)
 
-    # ---- 7. report
+    # ---- 7. quantization-aware training, the export and the integer datapath
+    t = time.time()
+    quant = quant_phase(dev, gen, trainer, full["times"])
+    log("quant", t, **quant)
+    quant_launches = {k: sum(quant[run]["launches"][k] for run in
+                             ("qat", "rtl_qat_residual", "full_quant_bits"))
+                      for k in ("datagen", "critic_grad")}
+
+    # ---- 8. report
     db, dby = datagen_bound_ms(MAIN_B, 16)
     cb, cby = critic_bound_ms(MAIN_B)
     dg_main, cr_main = dg_times[f"L16_B{MAIN_B}"], cr_times[MAIN_B]
@@ -737,7 +977,8 @@ def main() -> int:
          "library_ms": None, "device_us_per_launch": dg_main["device_us_per_launch"],
          "launches_by_path": {"train": launches["datagen"],
                               "train_scope": scope["fading"]["launches"]["datagen"],
-                              "full": full["launches"]["datagen"]}},
+                              "full": full["launches"]["datagen"],
+                              "quant": quant_launches["datagen"]}},
         {"name": "critic_grad", "route": "cuda", "source": "ofdmgan_tpu_torch/csrc/critic_grad.cu",
          "replaces": "ofdmgan_tpu/ops/pallas_critic.py:195", "launches": launches["critic_grad"],
          "max_abs_err": critic_err[MAIN_B], "ms": cr_main["ms"],
@@ -745,7 +986,8 @@ def main() -> int:
          "library_ms": None, "device_us_per_launch": cr_main["device_us_per_launch"],
          "launches_by_path": {"train": launches["critic_grad"],
                               "train_scope": scope["fading"]["launches"]["critic_grad"],
-                              "full": full["launches"]["critic_grad"]}},
+                              "full": full["launches"]["critic_grad"],
+                              "quant": quant_launches["critic_grad"]}},
     ]
     log("total", t0)
     print(json.dumps({"kernels": kernels}), flush=True)

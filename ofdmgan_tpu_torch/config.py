@@ -10,6 +10,8 @@ which for the training section differs from the YAML's value. The full
 U-Net family's section ``model.full`` (levels, base_channels) is read where
 the file has it; ``config/config.yaml`` has none, so the reference's
 defaults of ``train.py:332-334`` hold (5 levels, 32 base channels).
+``export_dir`` (``paths.export_dir``) is where a run writes its FPGA export
+unless ``export_after_training`` (the reference's top-level key) is false.
 """
 
 from __future__ import annotations
@@ -88,6 +90,8 @@ class Config:
     training: TrainingSection = TrainingSection()
     checkpoint_dir: str = "./checkpoints"
     log_dir: str = "./logs"
+    export_dir: str = "./export"
+    export_after_training: bool = True
     samples_per_epoch: int = 10_000   # synthetic frames per epoch
 
 
@@ -139,6 +143,8 @@ def config_from_dict(d: Dict[str, Any]) -> Config:
         ),
         checkpoint_dir=d.get("paths", {}).get("checkpoint_dir", base.checkpoint_dir),
         log_dir=d.get("paths", {}).get("log_dir", base.log_dir),
+        export_dir=d.get("paths", {}).get("export_dir", base.export_dir),
+        export_after_training=bool(d.get("export_after_training", True)),
         samples_per_epoch=int(d.get("tpu", {}).get("samples_per_epoch", base.samples_per_epoch)),
     )
 

@@ -16,9 +16,16 @@ resolution). Submodule names are the reference's layer names
 Both models take and return channels-last ``[B, L, 2]`` and run
 channels-first inside: each transposes once at its boundary. ``encode`` and
 ``decode`` are separate so the pipeline stages of ROADMAP A.8 can apply
-them apart. The reference's ``weight_bits``/``act_bits`` quantization
-simulation is ROADMAP A.5 and raises here; its tensor-parallel shardings
+them apart. The reference's tensor-parallel shardings
 (``full_unet.py:185-251``) wait for A.8.
+
+``weight_bits``/``act_bits`` > 0 simulate the int8 export's quantization
+(``full_unet.py:53-156``), and train under it through the straight-through
+estimator: every conv kernel fake-quantized per output channel to
+``weight_bits``, every stored activation (the input, each LeakyReLU output,
+each skip sum) fake-quantized per tensor to ``act_bits`` by its own max.
+The parameters are the float model's, under the same names, so any
+checkpoint runs under either forward.
 
 Inputs in a storage format (bf16, fp8) are read upcast to the weights'
 float32, as flax's promotion reads them in the reference.
@@ -33,6 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.dense_conv import upsample_nearest_2x
+from ..quant.fakequant import fake_quantize_auto
 from .generator import _conv, as_dtype
 
 
@@ -53,12 +61,6 @@ def check_frame_length(length: int, levels: int) -> None:
         raise ValueError(f"frame length {length} is not divisible by 2^levels = {2 ** levels}")
 
 
-def _quant_not_ported(weight_bits: int, act_bits: int) -> None:
-    if weight_bits or act_bits:
-        raise NotImplementedError("weight_bits/act_bits quantization of the full U-Net is not "
-                                  "ported yet (ROADMAP A.5)")
-
-
 class FullUNetGenerator(nn.Module):
     """``[B, L, 2] -> [B, L, 2]``; L divisible by 2^levels."""
 
@@ -66,9 +68,9 @@ class FullUNetGenerator(nn.Module):
                  output_channels: int = 2, leaky_slope: float = 0.2,
                  weight_bits: int = 0, act_bits: int = 0):
         super().__init__()
-        _quant_not_ported(weight_bits, act_bits)
         check_frame_length(frame_length, levels)
         self.frame_length, self.levels, self.leaky_slope = frame_length, levels, leaky_slope
+        self.weight_bits, self.act_bits = weight_bits, act_bits
         widths = [base_channels * 2 ** i for i in range(levels)]
         cin = 2
         for i, w in enumerate(widths):
@@ -84,31 +86,42 @@ class FullUNetGenerator(nn.Module):
             cin = out_w
         self.final = _conv(cin, output_channels, 1)
 
-    def _act(self, h: torch.Tensor) -> torch.Tensor:
-        return F.leaky_relu(h, self.leaky_slope)
+    def _quant_act(self, h: torch.Tensor) -> torch.Tensor:
+        return fake_quantize_auto(h, self.act_bits) if self.act_bits else h
+
+    def _layer(self, name: str, h: torch.Tensor) -> torch.Tensor:
+        """Conv ``name``, then LeakyReLU and the activation's quantization."""
+        return self._quant_act(F.leaky_relu(self._conv(name, h), self.leaky_slope))
+
+    def _conv(self, name: str, h: torch.Tensor) -> torch.Tensor:
+        conv = getattr(self, name)
+        if not self.weight_bits:
+            return conv(h)
+        w = fake_quantize_auto(conv.weight, self.weight_bits, per_channel=True, channel_axis=0)
+        return F.conv1d(h, w, conv.bias, conv.stride, 1)
 
     def encode(self, x: torch.Tensor) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         """The strided encoder: ``[B, L, 2]`` -> the bottleneck input and
         every level's skip activation, channels-first."""
         check_frame_length(x.shape[1], self.levels)
-        h = as_dtype(x.transpose(1, 2), self.enc1_1.weight.dtype)
+        h = self._quant_act(as_dtype(x.transpose(1, 2), self.enc1_1.weight.dtype))
         skips = []
         for i in range(self.levels):
-            h = self._act(getattr(self, f"enc{i+1}_1")(h))
-            h = self._act(getattr(self, f"enc{i+1}_2")(h))
+            h = self._layer(f"enc{i+1}_1", h)
+            h = self._layer(f"enc{i+1}_2", h)
             skips.append(h)
         return h, skips
 
     def decode(self, h: torch.Tensor, skips: List[torch.Tensor]) -> torch.Tensor:
         """The bottleneck and the decoder, consuming the skips: -> ``[B, L, 2]``."""
-        h = self._act(self.bottle1(h))
-        h = self._act(self.bottle2(h))
+        h = self._layer("bottle1", h)
+        h = self._layer("bottle2", h)
         for i in range(self.levels):
-            h = self._act(getattr(self, f"dec{i+1}_1")(upsample_nearest_2x(h)))
-            h = self._act(getattr(self, f"dec{i+1}_2")(h))
+            h = self._layer(f"dec{i+1}_1", upsample_nearest_2x(h))
+            h = self._layer(f"dec{i+1}_2", h)
             if i < self.levels - 1:
-                h = h + skips[self.levels - 2 - i]
-        return torch.tanh(self.final(h)).transpose(1, 2)
+                h = self._quant_act(h + skips[self.levels - 2 - i])
+        return torch.tanh(self._conv("final", h)).transpose(1, 2)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.decode(*self.encode(x))

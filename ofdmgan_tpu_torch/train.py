@@ -8,9 +8,15 @@ fused decoder, at float32 too), the step's numerics (``--act_dtype``,
 (``--frame_length``), the nonlinear impairments (``--nonlinear``), image
 data (``--image_dir``, ``--image_chunks``), resume (``--resume``), warm start
 (``--init_from``: a checkpoint directory, or a generator ``.npz``), an EMA
-of the generator (``--ema``) and a profiler trace (``--profile N``). Runs on
-the GPU unless ``--device cpu``. Without ``--config`` it uses the defaults
-of ``config/config.yaml``; with it, the YAML file (needs PyYAML).
+of the generator (``--ema``) and a profiler trace (``--profile N``);
+quantization-aware training (``--qat``; ``--rtl_qat``, the RTL's own
+operations under QAT, with ``--residual`` the RTL-residual datapath;
+``--quant_bits W A`` for the full U-Net) and the FPGA export that ends
+every run (``--export_dir``, ``--skip_export``), or the export alone of a
+checkpoint (``--export_only --export_checkpoint DIR or G.npz``). Runs on
+the GPU unless ``--device cpu`` (the export alone runs on the host).
+Without ``--config`` it uses the defaults of ``config/config.yaml``; with
+it, the YAML file (needs PyYAML).
 """
 
 from __future__ import annotations
@@ -77,6 +83,15 @@ def build_parser() -> argparse.ArgumentParser:
                    help="keep an EMA of the generator with this decay per step (0: off)")
     p.add_argument("--profile", type=int, default=0, metavar="N",
                    help="trace N outer steps with torch.profiler before training")
+    p.add_argument("--skip_export", action="store_true",
+                   help="write no FPGA export after training")
+    p.add_argument("--export_dir", default=None,
+                   help="the FPGA export's directory (default: the config's, ./export)")
+    p.add_argument("--export_only", action="store_true",
+                   help="only export --export_checkpoint's generator, without training")
+    p.add_argument("--export_checkpoint", default=None,
+                   help="with --export_only: a checkpoint directory (its params_g.npz) or a "
+                        "generator .npz")
     p.add_argument("--checkpoint_dir", default=None)
     p.add_argument("--log_dir", default=None)
     p.add_argument("--experiment", default=None)
@@ -88,8 +103,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def check_args(parser: argparse.ArgumentParser, args) -> None:
-    """The reference's refusals (train.py:274-276, 329-343) and what is not
-    ported yet."""
+    """The reference's refusals (train.py:274-276, 329-343)."""
     full = args.model == "full"
     if args.residual and full:
         parser.error("--residual applies to the mini generator")
@@ -102,10 +116,6 @@ def check_args(parser: argparse.ArgumentParser, args) -> None:
                      "operands have no conv path)")
     if args.quant_bits and not full:
         parser.error("--quant_bits applies to the full model (mini QAT is --qat/--rtl_qat)")
-    if args.quant_bits:
-        raise NotImplementedError("--quant_bits is not ported yet (ROADMAP A.5)")
-    if args.qat or args.rtl_qat:
-        raise NotImplementedError("--qat/--rtl_qat are not ported yet (ROADMAP A.5)")
 
 
 def config_from_args(args):
@@ -125,7 +135,9 @@ def config_from_args(args):
         lr_generator=args.lr, lr_discriminator=lr_d).items() if v is not None})
     cfg = dataclasses.replace(cfg, training=tr, **{k: v for k, v in dict(
         checkpoint_dir=args.checkpoint_dir, log_dir=args.log_dir, channel_type=args.channel,
-        frame_length=frame_length).items() if v is not None})
+        frame_length=frame_length, export_dir=args.export_dir).items() if v is not None})
+    if args.skip_export:
+        cfg = dataclasses.replace(cfg, export_after_training=False)
     if args.residual:
         cfg = dataclasses.replace(
             cfg, generator=dataclasses.replace(cfg.generator, input_residual=True))
@@ -133,17 +145,28 @@ def config_from_args(args):
 
 
 def main(argv=None):
-    """Train as the flags say; returns the trainer."""
+    """Train as the flags say; returns the trainer (``None`` with
+    ``--export_only``)."""
     parser = build_parser()
     args = parser.parse_args(argv)
     check_args(parser, args)
+    cfg = config_from_args(args)
+    if args.export_only:   # reference train.py:276-302
+        from .quant.export import export_generator_checkpoint
+
+        print(f"Exporting weights from checkpoint: {args.export_checkpoint}")
+        print(f"Writing to: {cfg.export_dir}/generator")
+        export_generator_checkpoint(args.export_checkpoint, cfg.export_dir)
+        print("Export complete.")
+        return None
 
     from .models import count_parameters
     from .training.trainer import Trainer, build_models
     from .utils.params_io import load_params_tree
 
-    cfg = config_from_args(args)
-    generator, critic = build_models(cfg, args.model, args.seed, args.act_dtype)
+    generator, critic = build_models(cfg, args.model, args.seed, args.act_dtype,
+                                     qat=args.qat or args.rtl_qat, rtl_faithful=args.rtl_qat,
+                                     quant_bits=args.quant_bits)
     trainer = Trainer(cfg, nonlinear=args.nonlinear,
                       pa_saturation=args.pa_saturation,
                       samples_per_epoch=args.samples_per_epoch, val_samples=args.val_samples,

@@ -17,12 +17,18 @@ best) and ``final_model/``, each with
   ``global_step``, ``best_val_loss`` and ``config``.
 
 The generator alone is also written as ``champion_params_g.npz`` (on each
-new best) and ``final_params_g.npz``. Not ported: data/pipeline parallelism
-and the post-training FPGA export.
+new best) and ``final_params_g.npz``. After ``final_model/`` a run writes
+the raw generator's FPGA export bundle (not the EMA's, as the reference)
+into ``export_dir/generator/`` (``quant/export.py``: the mini or the full
+U-Net layout), unless the configuration's ``export_after_training`` is
+false. Not ported: data/pipeline parallelism.
 
 The models are the mini pair of the configuration unless the caller
 injects another family (``generator``/``discriminator``, as the reference's
-``trainer.py:86-126``; ``build_models`` makes either family from a seed).
+``trainer.py:86-126``; ``build_models`` makes either family from a seed,
+the mini generator with ``qat``/``rtl_faithful``, Q1.7/Q8.8 fake
+quantization and the RTL's operations, and the full U-Net with
+``quant_bits``, the int8 export's quantization).
 Checkpoints, resume, warm start, the EMA and validation work on any family,
 through the module's own forward. ``fused_decoder`` trains the full U-Net
 through the fused k = 2-pair decoder (``models/unet_infer.py``), and
@@ -47,6 +53,7 @@ from ..device import resolve_device
 from ..models import FullDiscriminator, FullUNetGenerator, MiniDiscriminator, MiniGenerator
 from ..models.generator import FP8_DTYPES, storage_dtype
 from ..models.unet_infer import make_unet_infer_apply
+from ..quant.export import export_any_generator
 from ..utils.jax_params import from_jax_params, to_jax_params
 from ..utils.logging import MetricsLogger
 from ..utils.params_io import load_params_tree, save_params_tree
@@ -62,26 +69,31 @@ TRAIN_LOG_KEYS = {"d_loss": "d_loss", "g_loss": "g_loss", "wasserstein": "wasser
 MODEL_FAMILIES = ("mini", "full")
 
 
-def build_models(config: Config, family: str = "mini", seed: int = 0, act_dtype=None):
+def build_models(config: Config, family: str = "mini", seed: int = 0, act_dtype=None,
+                 qat: bool = False, rtl_faithful: bool = False, quant_bits=None):
     """The generator and critic of ``family`` (``MODEL_FAMILIES``) for
     ``config``, initialised from ``seed`` on the CPU. ``act_dtype`` is the
     mini pair's activation storage (the full family has none: the step
-    casts its batch, as the reference does)."""
+    casts its batch, as the reference does). ``qat``/``rtl_faithful`` are
+    the mini generator's modes, ``quant_bits`` (weight bits, activation
+    bits) the full generator's."""
     if family not in MODEL_FAMILIES:
         raise ValueError(f"model family must be one of {MODEL_FAMILIES}, not {family!r}")
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(seed)
         if family == "full":
             f, L = config.full, config.frame_length
+            wb, ab = quant_bits or (0, 0)
             return (FullUNetGenerator(frame_length=L, levels=f.levels,
-                                      base_channels=f.base_channels),
+                                      base_channels=f.base_channels, weight_bits=wb, act_bits=ab),
                     FullDiscriminator(frame_length=L, levels=f.levels,
                                       base_channels=f.base_channels))
         g, d = config.generator, config.discriminator
         return (MiniGenerator(enc1_channels=g.enc1_channels,
                               bottleneck_channels=g.bottleneck_channels,
                               dec1_channels=g.dec1_channels, leaky_slope=g.leaky_slope,
-                              input_residual=g.input_residual, act_dtype=act_dtype),
+                              input_residual=g.input_residual, rtl_faithful=rtl_faithful,
+                              qat=qat, act_dtype=act_dtype),
                 MiniDiscriminator(conv1_channels=d.conv1_channels,
                                   conv2_channels=d.conv2_channels,
                                   leaky_slope=d.leaky_slope, act_dtype=act_dtype))
@@ -120,10 +132,16 @@ class Trainer:
             generator = mini_g if generator is None else generator
             discriminator = mini_d if discriminator is None else discriminator
         self.generator, self.critic = generator.to(self.device), discriminator.to(self.device)
+        quantized = bool(getattr(self.generator, "weight_bits", 0)
+                         or getattr(self.generator, "act_bits", 0))
+        if quantized and act_dtype is not None:
+            raise NotImplementedError("quantization-aware training of the full U-Net with an "
+                                      "activation storage format (act_dtype) is not ported "
+                                      "(ROADMAP A.5)")
         gen_forward = None
         if fused_decoder:
             # reference trainer.py:254-281
-            if not isinstance(self.generator, FullUNetGenerator):
+            if not isinstance(self.generator, FullUNetGenerator) or quantized:
                 raise ValueError("fused_decoder is the float full-U-Net training forward "
                                  "(--model full)")
             if act_dtype in FP8_DTYPES:
@@ -324,7 +342,8 @@ class Trainer:
     def train(self, epochs: Optional[int] = None,
               experiment_name: Optional[str] = None) -> List[Dict[str, float]]:
         """Train and return one record per epoch of the logged train and val
-        metrics."""
+        metrics; then write the FPGA export unless the configuration's
+        ``export_after_training`` is false."""
         if self.nan_policy not in NAN_POLICIES:
             raise ValueError(f"nan_policy must be one of {NAN_POLICIES}")
         tr = self.config.training
@@ -378,6 +397,10 @@ class Trainer:
                     self.save_checkpoint(ckpt_dir / f"checkpoint_epoch_{epoch + 1}", is_best)
             self.save_checkpoint(ckpt_dir / "final_model")
             self.save_champion(ckpt_dir / "final_params_g.npz")
+            if self.config.export_after_training:
+                export_dir = Path(self.config.export_dir) / "generator"
+                print(f"Exporting weights for FPGA to {export_dir} ...", flush=True)
+                export_any_generator(self.generator, str(export_dir))
         finally:
             self.logger.close()
         print(f"Training complete in {time.time() - t0:.1f} s", flush=True)

@@ -14,7 +14,12 @@ critic-gradient kernel rtol 1e-4, atol 1e-4 of each tensor's largest entry:
 it sums the batch in another order. The full U-Net family: the fused
 decoder within atol 1e-5 of the module's tanh output at float32; a full
 step on the kernel route and the reference step, each tensor's update
-within 1e-3 of its largest entry, as for the mini step.
+within 1e-3 of its largest entry, as for the mini step. Quantization: the
+integer datapath on the card equals the same call on the CPU and the
+native engine ``native/fixsim.cpp`` bit for bit; a QAT step on the kernel
+routes and the reference step on one batch (the datagen kernel's, so both
+see the same Q8.8 rounding boundaries) within 1e-3 of each tensor's
+largest update.
 """
 
 import copy
@@ -288,3 +293,82 @@ def test_precision_modes_on_the_card_restore_the_flags(cuda, precision):
     torch.cuda.synchronize()
     assert (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32) == flags
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
+
+
+def _int_params(seed):
+    from ofdmgan_tpu_torch.quant import intsim
+    rng = np.random.default_rng(seed)
+    layer = lambda s, b: intsim.IntLayer(rng.integers(-128, 128, s).astype(np.int32),  # noqa: E731
+                                         rng.integers(-b, b, s[0]).astype(np.int32))
+    gen = intsim.IntGenParams(*(layer(s, 2048) for s in
+                                ((4, 2, 3), (8, 4, 3), (4, 8, 3), (2, 4, 3))))
+    disc = intsim.IntDiscParams(*(layer(s, 16384) for s in ((8, 4, 3), (16, 8, 3), (1, 16))))
+    return gen, disc
+
+
+def test_int_datapath_on_the_card_matches_the_cpu_and_fixsim(cuda):
+    """2^17 frames (two chunks) in every mode; the first 4,096 also through
+    the native engine."""
+    from ofdmgan_tpu_torch.quant import intsim
+    from ofdmgan_tpu_torch.quant.rom_codegen import pack_rom_arrays
+    from ofdmgan_tpu_torch.verify import cosim
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    x = intsim.float_to_q88(torch.randn(1 << 17, 16, 2, generator=gen, device=cuda) * 1.5)
+    c = intsim.float_to_q88(torch.randn(1 << 17, 16, 2, generator=gen, device=cuda) * 3.0)
+    ip, dp = _int_params(0)
+    for mode in ("rtl", "rtl_residual", "float_ref"):
+        got = intsim.generator_int_forward(ip, x, mode)
+        assert got.device == x.device and got.dtype == torch.int32
+        assert torch.equal(got.cpu(), intsim.generator_int_forward(ip, x.cpu(), mode)), mode
+    for mode in ("rtl", "float_ref"):
+        got = intsim.discriminator_int_forward(dp, x, c, mode)
+        assert torch.equal(got.cpu(), intsim.discriminator_int_forward(dp, x.cpu(), c.cpu(), mode))
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(3)
+        g = MiniGenerator(rtl_faithful=True, qat=True, input_residual=True)
+        d = MiniDiscriminator()
+    rom_w, rom_b = pack_rom_arrays(g, d)
+    n = 4096
+    x_ncl = x[:n].transpose(1, 2).cpu().numpy().astype(np.int16)
+    c_ncl = c[:n].transpose(1, 2).cpu().numpy().astype(np.int16)
+    y = intsim.generator_int_forward(intsim.quantize_weights_rtl(g), x[:n], "rtl_residual")
+    np.testing.assert_array_equal(cosim.generator_forward(rom_w, rom_b, x_ncl, residual=True),
+                                  y.transpose(1, 2).cpu().numpy().astype(np.int16))
+    s = intsim.discriminator_int_forward(intsim.quantize_weights_rtl(d, "discriminator"),
+                                         x[:n], c[:n])
+    np.testing.assert_array_equal(cosim.discriminator_forward(rom_w, rom_b, x_ncl, c_ncl),
+                                  s[:, 0].cpu().numpy().astype(np.int16))
+
+
+@pytest.mark.parametrize("kw", [dict(qat=True), dict(qat=True, rtl_faithful=True),
+                                dict(qat=True, rtl_faithful=True, input_residual=True)])
+def test_qat_step_routes_and_matches_the_reference_step(cuda, kw):
+    """QAT changes only the generator: both kernels stay on the path."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        g, d = MiniGenerator(**kw).to(cuda), MiniDiscriminator().to(cuda)
+    plain = TrainStep(g, d, make_adam(g.parameters(), 2e-4), make_adam(d.parameters(), 2e-4),
+                      sdg.DatagenConfig(), LossConfig(), 64, reference=True)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    for _ in range(3):
+        plain(gen)
+    kern = copy.deepcopy(plain)
+    kern.reference = False
+    assert (kern.datagen_route, kern.critic_route) == ("kernel", "kernel")
+    before = (dk.launches, ck.launches)
+    assert all(bool(torch.isfinite(v)) for v in kern(gen).values())
+    torch.cuda.synchronize()
+    assert (dk.launches - before[0], ck.launches - before[1]) == (1, 5)
+    plain = copy.deepcopy(kern)
+    plain.reference = True
+    start = [p.detach().clone() for m in (kern.generator, kern.critic) for p in m.parameters()]
+    batch = dk.synthetic_batch_from_draws(sdg.make_draws(gen, 64, 16), sdg.DatagenConfig())
+    alphas = [torch.rand(64, generator=gen, device=cuda) for _ in range(5)]
+    kern.run(batch, alphas)
+    plain.run(batch, alphas)
+    after_k = [p for m in (kern.generator, kern.critic) for p in m.parameters()]
+    after_p = [p for m in (plain.generator, plain.critic) for p in m.parameters()]
+    for p0, a, b in zip(start, after_p, after_k):
+        step_p, step_k = (a - p0).detach(), (b - p0).detach()
+        torch.testing.assert_close(step_k, step_p, rtol=0,
+                                   atol=1e-3 * float(step_p.abs().max()) + 1e-9)

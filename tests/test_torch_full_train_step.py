@@ -248,7 +248,7 @@ def _cli_args(tmp_path, name, *extra):
     return ["--device", "cpu", "--model", "full", "--frame_length", "64", "--batch_size", "4",
             "--samples_per_epoch", "8", "--val_samples", "4", "--epochs", "1",
             "--checkpoint_dir", str(tmp_path / name / "c"), "--log_dir", str(tmp_path / name / "l"),
-            *extra]
+            "--export_dir", str(tmp_path / name / "e"), *extra]
 
 
 def test_cli_full_run_checkpoint_loads_in_jax_and_resumes(tmp_path, capsys):
@@ -300,10 +300,10 @@ def test_cli_full_run_checkpoint_loads_in_jax_and_resumes(tmp_path, capsys):
     (["--qat"], SystemExit),
     (["--rtl_qat"], SystemExit),
     (["--fused_decoder", "--act_dtype", "float8_e4m3fn"], SystemExit),
-    (["--quant_bits", "8", "16"], NotImplementedError),
+    (["--quant_bits", "8", "16", "--act_dtype", "bfloat16"], NotImplementedError),
     (["--model", "mini", "--fused_decoder"], SystemExit),
     (["--model", "mini", "--quant_bits", "8", "16"], SystemExit),
-    (["--model", "mini", "--qat"], NotImplementedError),
+    (["--model", "mini", "--qat", "--act_dtype", "bfloat16"], NotImplementedError),
 ])
 def test_cli_refuses_what_the_reference_refuses(tmp_path, extra, error):
     with pytest.raises(error) as info:

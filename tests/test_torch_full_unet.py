@@ -23,6 +23,7 @@ from ofdmgan_tpu.utils.params_io import load_params_tree as j_load
 from ofdmgan_tpu_torch.models import count_parameters
 from ofdmgan_tpu_torch.models.full_unet import (FullDiscriminator, FullUNetGenerator,
                                                 full_unet_layer_names)
+from ofdmgan_tpu_torch.training.trainer import Trainer
 from ofdmgan_tpu_torch.utils.jax_params import from_jax_params, to_jax_params
 from ofdmgan_tpu_torch.utils.params_io import flatten_tree, load_params_tree
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
@@ -147,8 +148,14 @@ def test_a_two_level_critic_keeps_its_own_keys():
 
 @pytest.mark.parametrize("kw", [dict(weight_bits=8), dict(act_bits=16)])
 def test_quantized_modes_raise(kw):
+    """The quantized forward takes no fused decoder (reference
+    trainer.py:265-268) and no activation storage format (not ported)."""
+    g = FullUNetGenerator(frame_length=64, levels=3, base_channels=4, **kw)
+    d = FullDiscriminator(frame_length=64, levels=3, base_channels=4)
+    with pytest.raises(ValueError, match="fused_decoder"):
+        Trainer(device="cpu", generator=g, discriminator=d, fused_decoder=True)
     with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
-        FullUNetGenerator(**kw)
+        Trainer(device="cpu", generator=g, discriminator=d, act_dtype="bfloat16")
 
 
 def test_frame_length_must_divide_by_two_to_the_levels():

@@ -130,7 +130,7 @@ def test_trainer_trains_on_images(image_dir, tmp_path, chunks):
     """The image batches take the place of both datagen routes; validation
     draws from the same dataset (reference trainer.py:148-180, :417-433)."""
     cfg = Config(training=TrainingSection(batch_size=16), checkpoint_dir=str(tmp_path / "c"),
-                 log_dir=str(tmp_path / "l"))
+                 log_dir=str(tmp_path / "l"), export_dir=str(tmp_path / "e"))
     trainer = Trainer(cfg, samples_per_epoch=32, val_samples=16, device="cpu",
                       image_dir=str(image_dir), image_chunks=chunks, samples_per_image=4)
     assert isinstance(trainer.image_dataset,

@@ -134,5 +134,7 @@ def test_bridge_rejects_an_unknown_tree():
 
 @pytest.mark.parametrize("mode", ["rtl_faithful", "qat"])
 def test_unported_generator_modes_raise(mode):
-    with pytest.raises(NotImplementedError):
-        MiniGenerator(**{mode: True})
+    """The quantized modes with an activation storage format are not ported."""
+    MiniGenerator(**{mode: True})
+    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
+        MiniGenerator(**{mode: True}, act_dtype="bfloat16")

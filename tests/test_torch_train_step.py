@@ -42,15 +42,16 @@ KEY = jax.random.PRNGKey(0)
 class Pair:
     """A JAX step and a port step on the same weights. ``reference=False``
     builds the port's step with its routes chosen by scope, as ``Trainer``
-    does."""
+    does; ``gen_kw`` are the mini generator's modes on both sides."""
 
     def __init__(self, n_critic, adv_weight=1.0, frame_length=16, conv1_channels=8,
-                 reference=True):
+                 reference=True, gen_kw=None):
+        gen_kw = gen_kw or {}
         self.n_critic = n_critic
         L = frame_length
         jdg = JDatagenConfig.make(frame_length=L, snr_range=(0, 30))
         x0 = jnp.zeros((1, L, 2))
-        jg = JGen(frame_length=L)
+        jg = JGen(frame_length=L, **gen_kw)
         jc = JCritic(frame_length=L, conv1_channels=conv1_channels)
         pg, pd = jg.init(KEY, x0), jc.init(KEY, x0, x0)
         decay_d = DECAY_G * max(n_critic, 1)
@@ -61,7 +62,8 @@ class Pair:
                                      JLossConfig(n_critic=n_critic, adv_weight=adv_weight),
                                      batch_size=B, donate=False)
         np_tree = lambda t: jax.tree_util.tree_map(np.asarray, t)  # noqa: E731
-        self.g, self.d = MiniGenerator(), MiniDiscriminator(conv1_channels=conv1_channels)
+        self.g = MiniGenerator(**gen_kw)
+        self.d = MiniDiscriminator(conv1_channels=conv1_channels)
         self.g.load_state_dict(from_jax_params(np_tree(pg)))
         self.d.load_state_dict(from_jax_params(np_tree(pd)))
         self.opt_g = make_adam(self.g.parameters(), LR, (0.0, 0.9), DECAY_G, 0.5)

@@ -22,7 +22,8 @@ from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 def _config(tmp_path, **training):
     return Config(training=TrainingSection(batch_size=32, **training),
-                  checkpoint_dir=str(tmp_path / "ckpt"), log_dir=str(tmp_path / "logs"))
+                  checkpoint_dir=str(tmp_path / "ckpt"), log_dir=str(tmp_path / "logs"),
+                  export_dir=str(tmp_path / "export"))
 
 
 @pytest.mark.parametrize("kernels", [False, True])
@@ -92,7 +93,7 @@ def test_cli_runs_on_the_cpu(tmp_path, capsys):
     train_cli.main(["--device", "cpu", "--epochs", "1", "--batch_size", "16",
                     "--samples_per_epoch", "32", "--val_samples", "16", "--residual",
                     "--checkpoint_dir", str(tmp_path / "c"), "--log_dir", str(tmp_path / "l"),
-                    "--experiment", "cli"])
+                    "--export_dir", str(tmp_path / "e"), "--experiment", "cli"])
     out = capsys.readouterr().out
     assert "Generator parameters: 258" in out and "Epoch 0:" in out
     assert (tmp_path / "c" / "final_params_g.npz").exists()

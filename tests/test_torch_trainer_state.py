@@ -29,7 +29,8 @@ from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 def _config(tmp_path, **training):
     return Config(training=TrainingSection(batch_size=16, **training),
-                  checkpoint_dir=str(tmp_path / "ckpt"), log_dir=str(tmp_path / "logs"))
+                  checkpoint_dir=str(tmp_path / "ckpt"), log_dir=str(tmp_path / "logs"),
+                  export_dir=str(tmp_path / "export"))
 
 
 def _trainer(tmp_path, seed=0, **kw):
@@ -223,7 +224,8 @@ def test_cli_flags_set_the_config():
 def _cli(tmp_path, *extra):
     train_cli.main(["--device", "cpu", "--batch_size", "16", "--samples_per_epoch", "32",
                     "--val_samples", "16", "--checkpoint_dir", str(tmp_path / "c"),
-                    "--log_dir", str(tmp_path / "l"), *extra])
+                    "--log_dir", str(tmp_path / "l"), "--export_dir", str(tmp_path / "e"),
+                    *extra])
 
 
 def test_cli_resume_init_from_ema_and_profile(tmp_path, capsys):
