@@ -22,8 +22,18 @@ mini pair under quantization-aware training, ``qat`` and then
 run's FPGA export, the Verilog ROM's round trip, and the bit-true integer
 datapath on the card against the same call on the CPU and against the
 native engine ``native/fixsim.cpp`` (built with g++); and times the QAT
-steps against the float ones. Every phase prints one
-JSON line with its wall seconds as it ends. Any failed check raises, and the
+steps against the float ones. Phase ``eval`` runs the evaluation layer on
+the checkpoints of phases ``train`` and ``full`` through its CLIs
+(``--device cuda:0``; their printed output goes to
+``build/chip_smoke/eval/``): the mini sweep of ``benchmark_comparison`` at
+its defaults (100 trials, SNR 0 to 30 dB in steps of 5, linear and
+nonlinear, GAN-Q on the integer datapath) in both protocols and both
+normalizations, the full-width sweep (L = 1024, 100 trials, 7 SNRs, GAN-Q
+under ``quant_bits`` 8 16), ``eval_checkpoint`` at batch 512 and L = 1024
+as the module, ``--serving`` and ``--quant_bits 8 16`` (each twice: the
+first rate includes cuDNN's first calls), the distributional report, BER
+and ``enhance`` in both layouts; it launches neither kernel. Every phase
+prints one JSON line with its wall seconds as it ends. Any failed check raises, and the
 script exits non-zero. The last lines are the kernel table, the card's name
 and power limit, and the result line.
 
@@ -69,7 +79,23 @@ Its mini step times are host clocks around 50 steps ending in a
 synchronize, float, QAT, QAT, float; its full step time is taken as phase
 ``full`` takes its own, with cuDNN's default algorithms, and its device
 time by kind of kernel (``torch.profiler``, one step) beside that of the
-same weights with quantization off, in the same process.
+same weights with quantization off, in the same process. Phase ``eval``,
+the card against the CPU on the same draws (made on the CPU, or on the card
+and copied): the mini estimates of ZF, MMSE, Wiener, NoEQ, GAN and LMS by
+element within atol 2e-5, DFE (hard decisions) and RLS (its P recursion
+amplifies rounding) by mean MSE within rtol 1e-3, GAN-Q bit for bit
+against the CPU's integer datapath on the card's own noisy frames
+(``float_to_q88`` truncates, so frames that differ by rounding may differ
+by one Q8.8 step); the full sweep by each method's mean MSE within rtol
+1e-3 (atol 1e-9: the oracle ZF's MSE is rounding noise, ~4e-16); the full
+forward within atol 1e-4, and the serving (bf16) and quantized forwards
+within 3 times the CPU's own distance from its float32 forward; the
+report's statistics within rtol 1e-3, its null floor within 6 times the
+RMS of 8 independent clean-against-clean MMD^2 pairs (a Student-t ratio
+with 8 degrees of freedom: a false alarm about 3e-4 of the time); BER's
+hard decisions equal except within 1e-6 of zero; ``enhance`` within atol
+1e-5, its integer mode bit for bit. The oracle ZF is near perfect (MSE
+under 1e-4) and NoEQ's MSE falls as the SNR rises.
 """
 
 from __future__ import annotations
@@ -107,6 +133,16 @@ FUSED_ATOL = 1e-5          # fused against unfused decoder, tanh output (tests/t
 QUANT_FRAMES = 1 << 18     # integer datapath: card against CPU and against fixsim
 QUANT_FULL_BITS = (8, 16)  # --quant_bits of the full U-Net run
 FULL_EXPORT_LAYERS = 23    # levels 5: 10 encoder, 2 bottleneck, 10 decoder, final
+EVAL_BATCHES = 4           # eval: batches of eval_checkpoint and the report (51,200-frame runs cut)
+EVAL_FULL_CPU_TRIALS = 16  # eval: trials and frames of the full forward's CPU comparisons
+EVAL_MINI_ATOL = 2e-5      # eval: mini estimates on the card against the CPU, by element
+EVAL_MEAN_MSE_RTOL = 1e-3  # eval: per-method mean MSE, the card against the CPU
+EVAL_FULL_ATOL = 1e-4      # eval: the full forward on the card against the CPU's (cuDNN sums)
+EVAL_FORM_FACTOR = 3.0     # eval: serving/quantized forward, card against CPU, over the CPU's
+                           # own distance from the float32 forward
+EVAL_REPORT_RTOL = 1e-3    # eval: the report's statistics, the card against the CPU
+EVAL_NULL_PAIRS = 8        # eval: independent clean-vs-clean MMD^2 pairs beside the null floor
+EVAL_NULL_T = 6.0          # eval: |null floor| / their RMS (Student-t, 8 dof: p ~ 3e-4)
 TRAIN_LOG_KEYS = {"train/d_loss", "train/g_loss", "train/wasserstein", "train/rec_loss",
                   "train/gp", "val/rec_loss", "val/mse"}   # the reference's log keys
 
@@ -150,13 +186,16 @@ def back_to_back_us_per_launch(fn, args, n: int = 200) -> float:
     return start.elapsed_time(end) / n * 1e3
 
 
-def profiled(fn, n: int):
+def profiled(fn, n: int, host: bool = True):
     """``torch.profiler``'s events of ``n`` calls of ``fn``, after one call
     that is traced and dropped: the profiler misses the first kernel of a
-    session (one datagen launch of each trace that had none before it)."""
+    trace (one datagen launch of each trace that had none before it).
+    ``host`` also traces the host's ATen calls (costly where there are
+    hundreds of thousands)."""
     from torch.profiler import ProfilerActivity, profile, schedule
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+    activities = [ProfilerActivity.CPU] * host + [ProfilerActivity.CUDA]
+    with profile(activities=activities,
                  schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
         fn()
         torch.cuda.synchronize()
@@ -758,6 +797,301 @@ def quant_phase(dev, gen, float_trainer, full_times: dict) -> dict:
     return out
 
 
+
+def quiet(fn, log_path: str):
+    """``fn()`` with its standard output written to ``log_path``."""
+    import contextlib
+    from pathlib import Path
+    Path(log_path).parent.mkdir(parents=True, exist_ok=True)
+    with open(log_path, "w") as f, contextlib.redirect_stdout(f):
+        return fn()
+
+
+def wall(fn):
+    """(``fn()``, its host seconds, ending in a synchronize)."""
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t
+
+
+def eval_phase(dev, mini_ckpt: str, full_ckpt: str) -> dict:
+    """Phase ``eval``: the evaluation CLIs and modules on the card, each held
+    against the CPU on the same draws, with the mini checkpoint of phase
+    ``train`` and the full one of phase ``full``. Returns the phase line's
+    fields; every CLI's printed output goes to ``build/chip_smoke/eval/``."""
+    import itertools
+    import numpy as np
+    from ofdmgan_tpu_torch import (benchmark_comparison, distributional_report, enhance,
+                                   eval_checkpoint)
+    from ofdmgan_tpu_torch.eval import ber, distributional as dist, equalizers as eq
+    from ofdmgan_tpu_torch.eval import benchmark as bm
+    from ofdmgan_tpu_torch.eval.loading import build_generator
+    from ofdmgan_tpu_torch.quant import intsim
+    from ofdmgan_tpu_torch.signal import datagen as sdg
+    from ofdmgan_tpu_torch.utils.params_io import load_params_tree
+
+    d = "build/chip_smoke/eval"
+    on_dev = ["--device", str(dev)]
+    out, times = {}, {}
+    g_cpu = build_generator(load_params_tree(mini_ckpt), "mini", 16)
+    g_dev = copy.deepcopy(g_cpu).to(dev)
+    ip = intsim.quantize_weights_rtl(g_cpu)
+
+    # the mini sweep through the CLI at its defaults (100 trials, SNR 0-30
+    # step 5, linear and nonlinear) with GAN-Q, in every protocol and
+    # normalization
+    sweeps = {}
+    for protocol, norm in itertools.product(("oracle", "pilot"), ("independent", "joint")):
+        name = f"{protocol}_{norm}"
+        argv = on_dev + ["--checkpoint", mini_ckpt, "--quantized", "--protocol", protocol,
+                "--normalization", norm, "--output_dir", f"{d}/bench_{name}"]
+        (lin, nl), secs = wall(lambda: quiet(lambda: benchmark_comparison.main(argv),
+                                             f"{d}/bench_{name}.log"))
+        snrs = list(lin["NoEQ"])
+        times[f"mini_sweep_{name}_ms_per_snr"] = secs / (2 * len(snrs)) * 1e3
+        if len(snrs) != 7 or list(lin) != bm.METHODS:
+            raise AssertionError(f"the mini sweep {name} ran {list(lin)} at {snrs}")
+        if not all(math.isfinite(r[s][k]) for res in (lin, nl) for r in res.values()
+                   for s in snrs for k in r[s]):
+            raise AssertionError(f"non-finite mini sweep results ({name})")
+        noeq = [lin["NoEQ"][s]["mse"] for s in snrs]
+        if not all(a > b for a, b in zip(noeq, noeq[1:])) or \
+                not nl["NoEQ"][snrs[0]]["mse"] > nl["NoEQ"][snrs[-1]]["mse"]:
+            raise AssertionError(f"NoEQ's MSE does not fall with the SNR ({name}): {noeq}")
+        if protocol == "oracle" and not max(lin["ZF"][s]["mse"] for s in snrs) < 1e-4:
+            raise AssertionError(f"oracle ZF is not near perfect ({name})")
+        sweeps[name] = {m: {"linear_30db_mse": lin[m][30.0]["mse"],
+                            "nonlinear_30db_mse": nl[m][30.0]["mse"]} for m in lin}
+    out["mini_sweeps"] = sweeps
+
+    # the card against the CPU on the same draws (made on the CPU), two
+    # SNRs of each protocol, normalization and front end: ZF, MMSE, Wiener,
+    # NoEQ, GAN and LMS by element, DFE and RLS by mean MSE, GAN-Q bit for
+    # bit against the CPU's integer datapath on the card's own noisy frames
+    worst = {"by_element": 0.0, "dfe_rls_mean_mse_rel": 0.0}
+    for (protocol, norm, nl), snr in itertools.product(
+            itertools.product(("oracle", "pilot"), ("independent", "joint"), (False, True)),
+            (0.0, 30.0)):
+        draws = bm.make_snr_draws(torch.Generator().manual_seed(bm.seed_of(7, int(snr))), 100,
+                                  16, "awgn", protocol)
+        kw = dict(nonlinear=nl, pa_saturation=0.8, normalization=norm, int_params=ip,
+                  protocol=protocol)
+        clean_c, est_c = bm.estimates_from_draws({k: v.to(dev) for k, v in draws.items()},
+                                                 snr, generator=g_dev, **kw)
+        clean, est = bm.estimates_from_draws(draws, snr, generator=g_cpu, **kw)
+        what = f"{protocol}/{norm}/nonlinear={nl}/{snr} dB"
+        for m in ("ZF", "MMSE", "Wiener", "NoEQ", "GAN", "LMS"):
+            err = float((est_c[m].cpu() - est[m]).abs().max())
+            if not err <= EVAL_MINI_ATOL:
+                raise AssertionError(f"{m} on the card is {err:.3e} from the CPU ({what})")
+            worst["by_element"] = max(worst["by_element"], err)
+        for m in ("DFE", "RLS"):
+            a = float(((est_c[m] - clean_c) ** 2).mean())
+            b = float(((est[m] - clean) ** 2).mean())
+            rel = abs(a - b) / b
+            if not rel <= EVAL_MEAN_MSE_RTOL:
+                raise AssertionError(f"{m}'s mean MSE on the card {a:.6e}, CPU {b:.6e} ({what})")
+            worst["dfe_rls_mean_mse_rel"] = max(worst["dfe_rls_mean_mse_rel"], rel)
+        want = intsim.q88_to_float(intsim.generator_int_forward(
+            ip, intsim.float_to_q88(est_c["NoEQ"].cpu())))
+        if not torch.equal(est_c["GAN-Q"].cpu(), want):
+            raise AssertionError(f"GAN-Q on the card differs from the CPU's ({what})")
+    out["mini_card_vs_cpu"] = worst
+
+    # the full-width sweep (L = 1024, 100 trials, 7 SNRs) with the full
+    # generator and GAN-Q under the int8 export's quantization
+    tree = load_params_tree(full_ckpt)
+    f_cpu = build_generator(tree, "full", FULL_L)
+    fq_cpu = build_generator(tree, "full", FULL_L, quant_bits=QUANT_FULL_BITS)
+    f_dev, fq_dev = copy.deepcopy(f_cpu).to(dev), copy.deepcopy(fq_cpu).to(dev)
+    snrs = [float(s) for s in range(0, 31, 5)]
+    res, secs = wall(lambda: quiet(lambda: bm.run_benchmark(
+        f_dev, n_trials=100, frame_length=FULL_L, snr_values=snrs, include_quantized=True,
+        gen_q=fq_dev), f"{d}/full_sweep.log"))
+    times["full_sweep_ms_per_snr"] = secs / len(snrs) * 1e3
+    if list(res) != bm.METHODS or not all(math.isfinite(res[m][s]["mse"])
+                                         for m in res for s in snrs):
+        raise AssertionError(f"the full sweep gave {list(res)} or non-finite values")
+    if not max(res["ZF"][s]["mse"] for s in snrs) < 1e-4:
+        raise AssertionError("oracle ZF is not near perfect at L = 1024")
+    out["full_sweep_mse"] = {m: {str(s): res[m][s]["mse"] for s in (0.0, 30.0)} for m in res}
+    # held against the CPU by per-method mean MSE on the same draws, two
+    # SNRs (EVAL_FULL_CPU_TRIALS trials: the CPU's full forward is slow)
+    full_rel = {}
+    for snr in (0.0, 30.0):
+        draws = bm.make_snr_draws(torch.Generator().manual_seed(bm.seed_of(8, int(snr))),
+                                  EVAL_FULL_CPU_TRIALS, FULL_L)
+        r_dev = bm.snr_batch_from_draws({k: v.to(dev) for k, v in draws.items()}, snr,
+                                        generator=f_dev, gen_q=fq_dev)
+        r_cpu = bm.snr_batch_from_draws(draws, snr, generator=f_cpu, gen_q=fq_cpu)
+        for m in r_cpu:
+            a, b = float(r_dev[m][0].mean()), float(r_cpu[m][0].mean())
+            diff = abs(a - b)
+            if not diff <= EVAL_MEAN_MSE_RTOL * b + 1e-9:
+                raise AssertionError(f"{m} at L = {FULL_L}, {snr} dB: mean MSE on the card "
+                                     f"{a:.6e}, on the CPU {b:.6e}")
+            full_rel[m] = max(full_rel.get(m, 0.0), diff / max(b, 1e-30))
+    out["full_card_vs_cpu_mean_mse_rel"] = full_rel
+    # each equalizer alone at L = 1024, 100 trials; then where one SNR's
+    # batch spends its time: device time, idle share, kernel launches
+    draws = {k: v.to(dev) for k, v in bm.make_snr_draws(torch.Generator().manual_seed(9), 100,
+                                                        FULL_L).items()}
+    clean, est = bm.estimates_from_draws(draws, 20.0)
+    times["equalizer_ms_l1024"] = {
+        name: statistics.median(wall(lambda: fn(est["NoEQ"], clean))[1] for _ in range(3)) * 1e3
+        for name, fn in eq.EQUALIZERS.items()}
+    # (device activity alone: tracing its ~200,000 host calls costs ~1 min)
+    fn = lambda: bm.snr_batch_from_draws(draws, 20.0, generator=f_dev, gen_q=fq_dev)  # noqa: E731
+    wall_s = min(wall(fn)[1] for _ in range(2))
+    kernels = [e for e in profiled(fn, 1, host=False) if device_us(e) > 0 and "#" not in e.key
+               and e.device_type != torch.autograd.DeviceType.CPU
+               and not getattr(e, "is_user_annotation", False)]
+    device_ms = sum(device_us(e) for e in kernels) / 1e3
+    prof = {"wall_ms": wall_s * 1e3, "device_ms": device_ms,
+            "idle_share": 1 - device_ms / (wall_s * 1e3),
+            "kernel_launches": sum(e.count for e in kernels)}
+    out["full_sweep_profile_l1024"] = prof
+    del draws
+    del res, clean, est
+
+    # eval_checkpoint at batch 512, L = 1024: the module, the serving forward
+    # and --quant_bits 8 16; one batch of each held against the CPU
+    # each form twice: the first run's rate includes cuDNN's first calls
+    forms = {"module": [], "serving": ["--serving"], "quant_bits": ["--quant_bits", "8", "16"]}
+    ev = {}
+    for name, extra in forms.items():
+        argv = on_dev + ["--model", "full", "--checkpoint", full_ckpt, "--batches",
+                         str(EVAL_BATCHES)]
+        rates = []
+        for _ in range(2):
+            r = quiet(lambda: eval_checkpoint.main(argv + extra),
+                      f"{d}/eval_checkpoint_{name}.log")
+            row = r[full_ckpt]
+            if row["frames"] != EVAL_BATCHES * FULL_B or not math.isfinite(row["val_l1"]):
+                raise AssertionError(f"eval_checkpoint {name}: {row}")
+            rates.append(row["frames"] / row["seconds"])
+        ev[name] = {"val_l1": row["val_l1"], "frames_per_s": rates}
+        times[f"eval_checkpoint_{name}_frames_per_s"] = rates
+    batch = sdg.synthetic_batch(torch.Generator(device=dev).manual_seed(1234), FULL_B,
+                                sdg.DatagenConfig.make(frame_length=FULL_L))
+    x = batch["noisy"][:EVAL_FULL_CPU_TRIALS]
+    from ofdmgan_tpu_torch.models.unet_infer import make_unet_infer_apply
+    serve = make_unet_infer_apply(levels=f_dev.levels, act_dtype=torch.bfloat16)
+    with torch.no_grad():
+        y_float = f_cpu(x.cpu())
+        for name, fn_dev, fn_cpu in (
+                ("module", f_dev, f_cpu),
+                ("serving", lambda v: serve(f_dev, v).float(), lambda v: serve(f_cpu, v).float()),
+                ("quant_bits", fq_dev, fq_cpu)):
+            y_cpu = fn_cpu(x.cpu())
+            err = float((fn_dev(x).cpu() - y_cpu).abs().max())
+            # the bf16 and quantized forms: each device is some distance from
+            # the float32 forward; the two may differ by the sum
+            limit = EVAL_FULL_ATOL if name == "module" else \
+                EVAL_FORM_FACTOR * float((y_cpu - y_float).abs().max())
+            if not err <= limit:
+                raise AssertionError(f"eval_checkpoint {name}: the card's forward is "
+                                     f"{err:.3e} from the CPU's (limit {limit:.3e})")
+            ev[name].update(card_vs_cpu_max_abs_err=err, limit=limit)
+    out["eval_checkpoint"] = ev
+    del batch, x
+
+    # the distributional report at full width; the identity row on the CPU
+    # from the same draws; the null floor against an independent
+    # clean-vs-clean pair
+    argv = on_dev + ["--model", "full", "--checkpoint", f"full={full_ckpt}", "--batches",
+            str(EVAL_BATCHES), "--mmd_samples", "2048", "--json", f"{d}/distributional.json"]
+    rep, secs = wall(lambda: quiet(lambda: distributional_report.main(argv),
+                                   f"{d}/distributional.log"))
+    times["distributional_report_s"] = secs
+    dg = sdg.DatagenConfig.make(frame_length=FULL_L, snr_range=(0, 30))
+    draw = dist.seeded_draws(1234, FULL_B, dg, dev)
+    batches = [draw(i) for i in range(EVAL_BATCHES)]
+    report = dist.make_report_fn(lambda v: v, dg, FULL_B, EVAL_BATCHES, 2048)
+    r_dev = report(lambda i: batches[i])
+    r_cpu = report(lambda i: tuple({k: v.cpu() for k, v in b.items()} for b in batches[i]))
+    rep_err = {k: float((r_dev[k].cpu() - r_cpu[k]).abs().max()) for k in r_cpu}
+    noisy = rep["rows"]["noisy (no enhancement)"]
+    if not all(abs(float(r_dev[k].cpu().flatten()[0]) - v) <= 1e-6 * max(1.0, abs(v))
+               for k, v in (("mmd2", noisy["mmd2"]), ("mmd2_null", noisy["mmd2_null_floor"]))):
+        raise AssertionError("the report's noisy row is not the identity report's")
+    for k in r_cpu:
+        if not torch.allclose(r_dev[k].cpu(), r_cpu[k], rtol=EVAL_REPORT_RTOL, atol=1e-6):
+            raise AssertionError(f"the report's {k} on the card differs from the CPU's: "
+                                 f"{r_dev[k]} against {r_cpu[k]}")
+    # the null floor is one draw of the unbiased estimator under the null;
+    # so is MMD^2 between two independent clean sets of as many frames, with
+    # the same bandwidth: the floor's ratio to the RMS of EVAL_NULL_PAIRS such
+    # pairs is Student-t with that many degrees of freedom
+    n_mmd = min(2048, EVAL_BATCHES * min(2048 // EVAL_BATCHES + 1, FULL_B))
+    pairs = []
+    for j in range(EVAL_NULL_PAIRS):
+        a, b = (sdg.synthetic_batch(torch.Generator(device=dev).manual_seed(100 * k + j), n_mmd,
+                                    dg)["clean"].reshape(n_mmd, -1) for k in (1, 2))
+        pairs.append(float(dist.mmd2_unbiased(a, b, r_dev["bandwidth"])))
+    rms = math.sqrt(sum(v * v for v in pairs) / len(pairs))
+    null = noisy["mmd2_null_floor"]
+    if not abs(null) <= EVAL_NULL_T * rms:
+        raise AssertionError(f"the null floor {null:.3e} is more than {EVAL_NULL_T} times the "
+                             f"RMS {rms:.3e} of {len(pairs)} clean-vs-clean pairs")
+    out["distributional"] = {"rows": rep["rows"], "clean_pairs_mmd2": pairs,
+                             "null_over_pairs_rms": null / rms,
+                             "card_vs_cpu_max_abs_err": rep_err}
+    del batches, a, b
+
+    # BER at 2048 frames: the card against the CPU on the same draws; a
+    # decision may differ only where a statistic is within 1e-6 of zero
+    ber_out = {}
+    snrs = (0.0, 5.0, 10.0)
+    for name, make, stat in (("time_domain", ber.make_time_domain_draws,
+                              ber.time_domain_estimate),
+                             ("ofdm", ber.make_ofdm_draws, ber.ofdm_received_symbols)):
+        curve = {}
+        for i, snr in enumerate(snrs):
+            draws = make(torch.Generator().manual_seed(bm.seed_of(11, i)), 2048, 16)
+            for label, g_d, g_c in (("gan", g_dev, g_cpu), ("noisy", None, None)):
+                s_dev = stat({k: v.to(dev) for k, v in draws.items()}, snr, g_d).cpu()
+                s_cpu = stat(draws, snr, g_c)
+                if s_cpu.is_complex():
+                    s_dev, s_cpu = torch.view_as_real(s_dev), torch.view_as_real(s_cpu)
+                differ = (s_dev > 0) != (s_cpu > 0)
+                ties = (s_dev.abs() <= 1e-6) | (s_cpu.abs() <= 1e-6)
+                if bool((differ & ~ties).any()):
+                    raise AssertionError(f"BER {name} {label} {snr} dB: {int(differ.sum())} "
+                                         "decisions differ between the card and the CPU")
+            curve[snr] = (ber.ber_time_domain if name == "time_domain" else ber.ber_ofdm)(
+                g_dev, [snr], n_frames=2048)[snr]
+        ber_out[name] = curve
+    out["ber_gan"] = ber_out
+
+    # enhance on a .npy in each layout, float and integer, against the CPU
+    frames = sdg.synthetic_batch(torch.Generator().manual_seed(5), 1000,
+                                 sdg.DatagenConfig())["noisy"]
+    enh = {}
+    with torch.no_grad():
+        want = {"float": g_cpu(frames).numpy(),
+                "rtl": intsim.q88_to_float(intsim.generator_int_forward(
+                    ip, intsim.float_to_q88(frames))).numpy()}
+    for layout, arr in (("nlc", frames.numpy()), ("ncl", frames.numpy().transpose(0, 2, 1))):
+        np.save(f"{d}/frames_{layout}.npy", arr)
+        for mode, extra in (("float", []), ("rtl", ["--int_mode", "rtl"])):
+            quiet(lambda: enhance.main(on_dev + ["--checkpoint", mini_ckpt, "--input",
+                                        f"{d}/frames_{layout}.npy", "--output",
+                                        f"{d}/enhanced.npy", "--batch_size", "256"] + extra),
+                  f"{d}/enhance.log")
+            got = np.load(f"{d}/enhanced.npy")
+            got = got if layout == "nlc" else got.transpose(0, 2, 1)
+            err = float(np.abs(got - want[mode]).max())
+            if (mode == "rtl" and not np.array_equal(got, want[mode])) or not err <= 1e-5:
+                raise AssertionError(f"enhance {layout} {mode}: {err:.3e} from the CPU")
+            enh[f"{layout}_{mode}"] = err
+    out["enhance_max_abs_err"] = enh
+    out["times"] = times
+    return out
+
+
 def main() -> int:
     t0 = time.time()
     if not torch.cuda.is_available():
@@ -965,7 +1299,19 @@ def main() -> int:
                              ("qat", "rtl_qat_residual", "full_quant_bits"))
                       for k in ("datagen", "critic_grad")}
 
-    # ---- 8. report
+    # ---- 8. evaluation: the sweeps, BER, the report and the CLIs, on the
+    # checkpoints of phases train and full; no kernel is on this path
+    t = time.time()
+    dk.launches = 0
+    ck.launches = 0
+    ev = eval_phase(dev, "build/chip_smoke/checkpoints/final_model",
+                    "build/chip_smoke/full/checkpoints/final_model")
+    eval_launches = {"datagen": dk.launches, "critic_grad": ck.launches}
+    if eval_launches != {"datagen": 0, "critic_grad": 0}:
+        raise AssertionError(f"the evaluation path launched {eval_launches}")
+    log("eval", t, launches=eval_launches, **ev)
+
+    # ---- 9. report
     db, dby = datagen_bound_ms(MAIN_B, 16)
     cb, cby = critic_bound_ms(MAIN_B)
     dg_main, cr_main = dg_times[f"L16_B{MAIN_B}"], cr_times[MAIN_B]
@@ -978,7 +1324,8 @@ def main() -> int:
          "launches_by_path": {"train": launches["datagen"],
                               "train_scope": scope["fading"]["launches"]["datagen"],
                               "full": full["launches"]["datagen"],
-                              "quant": quant_launches["datagen"]}},
+                              "quant": quant_launches["datagen"],
+                              "eval": eval_launches["datagen"]}},
         {"name": "critic_grad", "route": "cuda", "source": "ofdmgan_tpu_torch/csrc/critic_grad.cu",
          "replaces": "ofdmgan_tpu/ops/pallas_critic.py:195", "launches": launches["critic_grad"],
          "max_abs_err": critic_err[MAIN_B], "ms": cr_main["ms"],
@@ -987,7 +1334,8 @@ def main() -> int:
          "launches_by_path": {"train": launches["critic_grad"],
                               "train_scope": scope["fading"]["launches"]["critic_grad"],
                               "full": full["launches"]["critic_grad"],
-                              "quant": quant_launches["critic_grad"]}},
+                              "quant": quant_launches["critic_grad"],
+                              "eval": eval_launches["critic_grad"]}},
     ]
     log("total", t0)
     print(json.dumps({"kernels": kernels}), flush=True)

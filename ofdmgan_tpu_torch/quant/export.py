@@ -196,11 +196,8 @@ def export_any_generator(params, output_dir: str, **kw) -> Dict[str, Any]:
 def export_generator_checkpoint(path: str, export_dir: str, **kw) -> Dict[str, Any]:
     """The bundle of a checkpoint directory's generator (its ``params_g.npz``)
     or of a generator ``.npz``, written to ``export_dir/generator``."""
-    src = Path(path) if path else None
-    if src is not None and src.is_dir():
-        src = src / "params_g.npz"
-    if src is None or not src.is_file():
+    if not path or not Path(path).exists():
         raise FileNotFoundError(f"no generator checkpoint at {path!r}: give a checkpoint "
                                 "directory (its params_g.npz) or a generator .npz")
-    return export_any_generator(load_params_tree(str(src)), str(Path(export_dir) / "generator"),
+    return export_any_generator(load_params_tree(path), str(Path(export_dir) / "generator"),
                                 **kw)

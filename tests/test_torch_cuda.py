@@ -19,7 +19,15 @@ integer datapath on the card equals the same call on the CPU and the
 native engine ``native/fixsim.cpp`` bit for bit; a QAT step on the kernel
 routes and the reference step on one batch (the datagen kernel's, so both
 see the same Q8.8 rounding boundaries) within 1e-3 of each tensor's
-largest update.
+largest update. Evaluation: the equalizers, one SNR batch of the sweep and
+the distributional report on the card against the CPU on the same draws
+(drawn on the CPU, or on the card and copied): by element within atol
+2e-5 (float32 rounding of complex products and of the FFT), DFE and RLS
+at L = 256 by mean MSE within rtol 1e-3 (a decision or the P recursion
+amplifies rounding), GAN-Q bit for bit against the CPU's integer
+datapath on the card's own noisy frames (the two devices' frames differ by
+rounding, which can move a Q8.8 truncation), the report's statistics within
+rtol 1e-4.
 """
 
 import copy
@@ -372,3 +380,67 @@ def test_qat_step_routes_and_matches_the_reference_step(cuda, kw):
         step_p, step_k = (a - p0).detach(), (b - p0).detach()
         torch.testing.assert_close(step_k, step_p, rtol=0,
                                    atol=1e-3 * float(step_p.abs().max()) + 1e-9)
+
+
+def _snr_draws(n, L, protocol, channel="awgn", seed=6):
+    from ofdmgan_tpu_torch.eval import benchmark as bm
+    return bm.make_snr_draws(torch.Generator().manual_seed(seed), n, L, channel, protocol)
+
+
+@pytest.mark.parametrize("L", [16, 256])
+def test_equalizers_on_the_card_match_the_cpu(cuda, L):
+    """The same draws on both devices: at L = 16 every equalizer by
+    element; at L = 256 ZF, MMSE and LMS by element and DFE (hard
+    decisions) and RLS (rounding amplified by its P recursion) by mean MSE."""
+    from ofdmgan_tpu_torch.eval import equalizers as eq
+    from ofdmgan_tpu_torch.eval.benchmark import estimates_from_draws
+    draws = _snr_draws(64, L, "oracle")
+    clean, est = estimates_from_draws(draws, 10.0)
+    noisy = est["NoEQ"]
+    for name, fn in eq.EQUALIZERS.items():
+        got, m_got = fn(noisy.to(cuda), clean.to(cuda))
+        ref, m_ref = fn(noisy, clean)
+        assert got.device == cuda
+        if L == 16 or name in ("ZF", "MMSE", "LMS"):
+            torch.testing.assert_close(got.cpu(), ref, rtol=0, atol=2e-5)
+        else:
+            torch.testing.assert_close(m_got["mse"].mean().cpu(), m_ref["mse"].mean(),
+                                       rtol=1e-3, atol=1e-9)
+
+
+@pytest.mark.parametrize("protocol,normalization,nonlinear", [
+    ("oracle", "independent", False), ("pilot", "joint", True)])
+def test_snr_batch_on_the_card_matches_the_cpu(cuda, protocol, normalization, nonlinear):
+    from ofdmgan_tpu_torch.eval.benchmark import estimates_from_draws
+    from ofdmgan_tpu_torch.quant import intsim
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(1)
+        g = MiniGenerator()
+    ip = intsim.quantize_weights_rtl(g)
+    draws = _snr_draws(100, 16, protocol, "multipath")
+    kw = dict(channel_type="multipath", nonlinear=nonlinear, pa_saturation=0.8,
+              normalization=normalization, int_params=ip, protocol=protocol)
+    clean_c, est_c = estimates_from_draws({k: v.to(cuda) for k, v in draws.items()}, 20.0,
+                                          generator=copy.deepcopy(g).to(cuda), **kw)
+    clean, est = estimates_from_draws(draws, 20.0, generator=g, **kw)
+    torch.testing.assert_close(clean_c.cpu(), clean, rtol=0, atol=2e-6)
+    assert set(est_c) == set(est)
+    for m in est:
+        if m == "GAN-Q":   # bit for bit on the card's own input frames
+            want = intsim.q88_to_float(intsim.generator_int_forward(
+                ip, intsim.float_to_q88(est_c["NoEQ"].cpu())))
+            assert torch.equal(est_c[m].cpu(), want)
+        else:
+            torch.testing.assert_close(est_c[m].cpu(), est[m], rtol=0, atol=2e-5, msg=m)
+
+
+def test_distributional_report_on_the_card_matches_the_cpu(cuda):
+    from ofdmgan_tpu_torch.eval.distributional import make_report_fn, seeded_draws
+    cfg = sdg.DatagenConfig.make(frame_length=64, nonlinear=True, pa_saturation=0.8)
+    draw_card = seeded_draws(2, 256, cfg, cuda)
+    batches = [draw_card(i) for i in range(4)]
+    report = make_report_fn(lambda x: 0.9 * x, cfg, 256, 4, 512)
+    got = report(lambda i: batches[i])
+    ref = report(lambda i: tuple({k: v.cpu() for k, v in d.items()} for d in batches[i]))
+    for k in ref:
+        torch.testing.assert_close(got[k].cpu(), ref[k], rtol=1e-4, atol=1e-6, msg=k)
