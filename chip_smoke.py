@@ -32,7 +32,16 @@ normalizations, the full-width sweep (L = 1024, 100 trials, 7 SNRs, GAN-Q
 under ``quant_bits`` 8 16), ``eval_checkpoint`` at batch 512 and L = 1024
 as the module, ``--serving`` and ``--quant_bits 8 16`` (each twice: the
 first rate includes cuDNN's first calls), the distributional report, BER
-and ``enhance`` in both layouts; it launches neither kernel. Every phase
+and ``enhance`` in both layouts; it launches neither kernel. Phase
+``verify`` runs the hardware-verification and handoff slice on the card,
+each part against the CPU: golden vectors and the architecture check on
+phase ``train``'s checkpoint, the reconstruction proof (SNR 0 to 30 dB,
+float and integer), the integer-datapath cosim report with fixsim, the
+RTL handoff bundle (``make_rtl_handoff``) from phase ``quant``'s
+RTL-residual generator, the simpleGAN through its CLI at the recipe's
+30,000 steps and 2,000 steps on the card and the CPU from one draw set,
+and ``selfcheck`` (in this process and as a CLI), whose training step
+and kernel statistics launch both kernels. Every phase
 prints one JSON line with its wall seconds as it ends. Any failed check raises, and the
 script exits non-zero. The last lines are the kernel table, the card's name
 and power limit, and the result line.
@@ -95,7 +104,26 @@ RMS of 8 independent clean-against-clean MMD^2 pairs (a Student-t ratio
 with 8 degrees of freedom: a false alarm about 3e-4 of the time); BER's
 hard decisions equal except within 1e-6 of zero; ``enhance`` within atol
 1e-5, its integer mode bit for bit. The oracle ZF is near perfect (MSE
-under 1e-4) and NoEQ's MSE falls as the SNR rises.
+under 1e-4) and NoEQ's MSE falls as the SNR rises. Phase ``verify``: the
+golden output floats within atol 1e-6 of the CPU's, the card's Q8.8 files
+its own floats' encoding and the CPU's but for entries whose two floats
+straddle a Q8.8 step (1 LSB), the input files byte for byte; every
+architecture item and cosim test passes, fixsim bit for bit on every
+generator test; the proof's float MSEs within rtol 1e-5 and its integer
+MSEs equal (its means are float64 sums, its noise scaled on the host);
+the handoff bundles byte for byte, fixsim equal to every vector; the
+simpleGAN's mean distance to the nearer pattern under 0.60 over 64
+samples (``tests/test_simplegan.py``), its integer path bit for bit, and
+its parameters after 500, 1,000, 1,500 and 2,000 steps on the card within
+1e-4 of the CPU's, each tensor's difference over its layer's largest
+entry (weight and bias together): CUDA's and the CPU's tanh, sigmoid and
+log round apart by an ulp or two, which plain SGD carries without
+amplifying (on an H100: at most 1.1e-7 in ``matlab`` mode and 4.6e-8 in
+``exact``, growing from 4.7e-9 and 2.7e-8 after the first 500 steps); a
+tensor's own largest entry is no scale where a bias crosses zero (the
+critic's output bias is 6.2e-6 after 1,000 steps, where its 1.7e-9
+difference read 2.8e-4); selfcheck ``ALL PASSED`` in both runs, its kernel statistics
+within 0.01 of the FFT datagen's.
 """
 
 from __future__ import annotations
@@ -143,6 +171,14 @@ EVAL_FORM_FACTOR = 3.0     # eval: serving/quantized forward, card against CPU, 
 EVAL_REPORT_RTOL = 1e-3    # eval: the report's statistics, the card against the CPU
 EVAL_NULL_PAIRS = 8        # eval: independent clean-vs-clean MMD^2 pairs beside the null floor
 EVAL_NULL_T = 6.0          # eval: |null floor| / their RMS (Student-t, 8 dof: p ~ 3e-4)
+GOLDEN_ATOL = 1e-6         # verify: golden output floats, the card against the CPU
+PROOF_RTOL = 1e-5          # verify: the proof's float MSEs, the card against the CPU
+VERIFY_SNRS = (0, 5, 10, 15, 20, 25, 30)   # verify: the proof's SNRs (dB)
+SIMPLEGAN_BAR = 0.60       # verify: mean distance to the nearer pattern (tests/test_simplegan.py)
+SIMPLEGAN_CMP_STEPS = 2000  # verify: simpleGAN steps on the card and the CPU from one draw set
+SIMPLEGAN_RTOL = 1e-4      # verify: their parameters, of each layer's largest entry
+SIMPLEGAN_FILE_LINES = {"gen_w1.txt": 6, "gen_b1.txt": 3, "gen_w2.txt": 27, "gen_b2.txt": 9,
+                        "disc_w1.txt": 27, "disc_b1.txt": 3, "disc_w2.txt": 3, "disc_b2.txt": 1}
 TRAIN_LOG_KEYS = {"train/d_loss", "train/g_loss", "train/wasserstein", "train/rec_loss",
                   "train/gp", "val/rec_loss", "val/mse"}   # the reference's log keys
 
@@ -1092,6 +1128,225 @@ def eval_phase(dev, mini_ckpt: str, full_ckpt: str) -> dict:
     return out
 
 
+def files_differ(a: str, b: str) -> list:
+    """The relative paths of the files under ``a`` and ``b`` that are not
+    byte-identical (or are in one tree only)."""
+    from pathlib import Path
+    ta = {p.relative_to(a): p for p in Path(a).rglob("*") if p.is_file()}
+    tb = {p.relative_to(b): p for p in Path(b).rglob("*") if p.is_file()}
+    return sorted(str(k) for k in ta.keys() | tb.keys()
+                  if k not in ta or k not in tb or ta[k].read_bytes() != tb[k].read_bytes())
+
+
+def verify_phase(dev, mini_ckpt: str, rtl_ckpt: str) -> dict:
+    """Phase ``verify``: the hardware-verification and handoff slice on the
+    card, each part held against the CPU, with the mini checkpoint of phase
+    ``train`` and the RTL-residual one of phase ``quant``. Returns the
+    phase line's fields; printed output goes to ``build/chip_smoke/verify/``."""
+    import numpy as np
+    from ofdmgan_tpu_torch import make_rtl_handoff, selfcheck
+    from ofdmgan_tpu_torch import simplegan as sg
+    from ofdmgan_tpu_torch.eval.loading import build_generator
+    from ofdmgan_tpu_torch.models import MiniDiscriminator
+    from ofdmgan_tpu_torch.simplegan import train_cli
+    from ofdmgan_tpu_torch.utils.jax_params import from_jax_params
+    from ofdmgan_tpu_torch.utils.params_io import load_params_tree
+    from ofdmgan_tpu_torch.verify import arch_check, cosim, cosim_report, golden, proof
+
+    d = "build/chip_smoke/verify"
+    out, times = {}, {}
+    g_cpu = build_generator(load_params_tree(mini_ckpt), "mini", 16)
+    d_cpu = MiniDiscriminator()
+    d_cpu.load_state_dict(from_jax_params(load_params_tree(f"{mini_ckpt}/params_d.npz")))
+    g_dev, d_dev = copy.deepcopy(g_cpu).to(dev), copy.deepcopy(d_cpu).to(dev)
+
+    # golden vectors on the card and on the CPU from one input: the floats
+    # within GOLDEN_ATOL, the card's Q8.8 files its own floats' encoding, and
+    # at most 1 LSB from the CPU's where the two floats straddle a Q8.8 step
+    t = time.time()
+    x = torch.randn(1, 2, 16, generator=torch.Generator().manual_seed(21)).numpy()
+    for name, g in (("cuda", g_dev), ("cpu", g_cpu)):
+        golden.generate_golden_vectors(g, x, f"{d}/golden_{name}")
+    y_dev, y_cpu = (np.load(f"{d}/golden_{n}/output_float.npy") for n in ("cuda", "cpu"))
+    q_dev, q_cpu = (np.load(f"{d}/golden_{n}/output_q88.npy") for n in ("cuda", "cpu"))
+    straddle = golden.q88_int16(y_dev) != golden.q88_int16(y_cpu)
+    if (not np.abs(y_dev - y_cpu).max() <= GOLDEN_ATOL
+            or not np.array_equal(q_dev, golden.q88_int16(y_dev))
+            or not np.array_equal(golden.read_hex(f"{d}/golden_cuda/output.hex"), q_dev.flatten())
+            or np.abs(q_dev.astype(int) - q_cpu).max() > 1
+            or not np.array_equal(q_dev[~straddle], q_cpu[~straddle])):
+        raise AssertionError("the golden vectors on the card differ from the CPU's")
+    differ = [f for f in ("input_float.npy", "input_q88.npy", "input.hex", "golden_metadata.json")
+              if f in files_differ(f"{d}/golden_cuda", f"{d}/golden_cpu")]
+    if differ:
+        raise AssertionError(f"golden files {differ} differ between the card and the CPU")
+    out["golden"] = {"output_float_max_abs_err": float(np.abs(y_dev - y_cpu).max()),
+                     "q88_entries_straddling": int(straddle.sum())}
+    times["golden_s"] = time.time() - t
+
+    # the architecture contract on the card: every item passes
+    t = time.time()
+    res = quiet(lambda: arch_check.run_full_verification(g_dev, d_dev, f"{d}/arch", device=dev),
+                f"{d}/arch.log")
+    if not all(r.passed for r in res.values()):
+        raise AssertionError(f"architecture check failed: "
+                             f"{ {k: r.details for k, r in res.items() if not r.passed} }")
+    out["arch"] = {k: r.passed for k, r in res.items()}
+    out["arch"]["gp_value"] = res["gradient_penalty"].details["gp_value"]
+    times["arch_s"] = time.time() - t
+
+    # the reconstruction proof, float and integer, on one set of CPU draws
+    t = time.time()
+    draws = proof.make_proof_draws(torch.Generator().manual_seed(22))
+    proof_err = {"float_mse_max_rel_err": 0.0}
+    for snr in VERIFY_SNRS:
+        for what, fn in (("float", proof.signal_enhancement_from_draws),
+                         ("int", proof.int_datapath_enhancement_from_draws)):
+            r_dev, r_cpu = fn(g_dev, draws, float(snr)), fn(g_cpu, draws, float(snr))
+            for k in ("mse_before", "mse_after"):
+                if what == "int" and r_dev[k] != r_cpu[k]:
+                    raise AssertionError(f"proof {snr} dB integer {k}: {r_dev[k]} on the card, "
+                                         f"{r_cpu[k]} on the CPU")
+                rel = abs(r_dev[k] - r_cpu[k]) / abs(r_cpu[k])
+                if not rel <= PROOF_RTOL:
+                    raise AssertionError(f"proof {snr} dB {what} {k}: {rel:.3e} from the CPU")
+                if what == "float":
+                    proof_err["float_mse_max_rel_err"] = max(proof_err["float_mse_max_rel_err"],
+                                                             rel)
+            proof_err[f"{what}_{snr}dB_improvement_db"] = r_dev["snr_improvement_db"]
+    out["proof"] = proof_err
+    times["proof_s"] = time.time() - t
+
+    # the integer-datapath suite on the card: every test passes, fixsim bit
+    # for bit on every generator test
+    t = time.time()
+    res = quiet(lambda: cosim_report.run_cosim_verification(g_dev, d_dev, f"{d}/cosim",
+                                                            device=dev), f"{d}/cosim.log")
+    gen_tests = [r for r in res["tests"] if r["kind"].startswith("generator")]
+    if (res["passed_tests"] != res["total_tests"] or not res["native_engine"]
+            or not all(r["native_bitexact"] for r in gen_tests)):
+        raise AssertionError(f"cosim report: {res['passed_tests']}/{res['total_tests']} passed")
+    out["cosim"] = {"passed": res["passed_tests"], "total": res["total_tests"],
+                    "native_bitexact_generator_tests": len(gen_tests)}
+    times["cosim_s"] = time.time() - t
+
+    # the RTL handoff bundle from phase quant's RTL-residual generator, on
+    # the card and on the CPU: byte-identical; fixsim agrees on every vector
+    t = time.time()
+    for name in ("cuda", "cpu"):
+        quiet(lambda: make_rtl_handoff.main([
+            "--checkpoint", rtl_ckpt, "--out_dir", f"{d}/handoff_{name}/bundle",
+            "--rom_file", f"{d}/handoff_{name}/weight_rom_rtl_residual.v",
+            "--device", str(dev) if name == "cuda" else "cpu"]), f"{d}/handoff.log")
+    differ = files_differ(f"{d}/handoff_cuda", f"{d}/handoff_cpu")
+    if differ:
+        raise AssertionError(f"handoff files {differ} differ between the card and the CPU")
+    from ofdmgan_tpu_torch.quant.rom_codegen import parse_rom_verilog
+    rom_w, rom_b = parse_rom_verilog(f"{d}/handoff_cuda/weight_rom_rtl_residual.v")
+    manifest = json.loads(open(f"{d}/handoff_cuda/bundle/manifest.json").read())
+    for name in manifest["vectors"]:
+        x_in = golden.read_hex(f"{d}/handoff_cuda/bundle/vectors/{name}_in.hex")
+        y_out = golden.read_hex(f"{d}/handoff_cuda/bundle/vectors/{name}_out.hex")
+        y_fix = cosim.generator_forward(rom_w, rom_b, x_in.reshape(1, 2, 16), residual=True)
+        if not np.array_equal(y_fix.flatten(), y_out):
+            raise AssertionError(f"fixsim differs from the handoff vector {name}")
+    out["handoff"] = {"vectors": len(manifest["vectors"]),
+                      "out_crc32": {k: v["out_crc32"] for k, v in manifest["vectors"].items()}}
+    times["handoff_s"] = time.time() - t
+
+    # simpleGAN through its CLI at the default 30,000 steps (matlab): the
+    # learning bar, the weight files, the integer path on the card against
+    # the CPU
+    t = time.time()
+    (p_dev, losses), secs = wall(lambda: quiet(lambda: train_cli.main(
+        ["--device", str(dev), "--output_dir", f"{d}/simplegan"]), f"{d}/simplegan.log"))
+    steps = int(losses["loss_d"].shape[0])
+    imgs = sg.generate_samples(p_dev, ngs=torch.randn(
+        64, 2, generator=torch.Generator().manual_seed(2))).reshape(64, 9).cpu()
+    dist = ((imgs[:, None] - sg.patterns()[None]) ** 2).mean(-1).min(1).values.mean()
+    if not (steps == 30_000 and float(dist) < SIMPLEGAN_BAR):
+        raise AssertionError(f"simpleGAN: {steps} steps, mean distance {float(dist)}")
+    lines = {f: len(open(f"{d}/simplegan/{f}").read().splitlines())
+             for f in SIMPLEGAN_FILE_LINES}
+    if lines != SIMPLEGAN_FILE_LINES:
+        raise AssertionError(f"simpleGAN weight files: {lines}")
+    q_dev = sg.quantize_params(p_dev)
+    q_cpu = sg.quantize_params(sg.SimpleGANParams(*(p.cpu() for p in p_dev)))
+    ng = torch.arange(-2048, 2048, 4).reshape(-1, 2)   # Q8.8 latents over [-8, 8)
+    img_dev = sg.generator_int_forward(q_dev, ng.to(dev))
+    img_cpu = sg.generator_int_forward(q_cpu, ng)
+    if not (torch.equal(img_dev.cpu(), img_cpu) and torch.equal(
+            sg.discriminator_int_forward(q_dev, img_dev).cpu(),
+            sg.discriminator_int_forward(q_cpu, img_cpu))):
+        raise AssertionError("the simpleGAN integer path on the card differs from the CPU's")
+    # its launches and ATen calls per step, from the profiler over 50 steps
+    few = sg.make_train_draws(torch.Generator().manual_seed(3), 50)
+    events = profiled(lambda: sg.train_from_draws(p_dev, **few), 1)
+    launches_per_step = sum(e.count for e in events if device_us(e) > 0
+                            and e.device_type != torch.autograd.DeviceType.CPU
+                            and not getattr(e, "is_user_annotation", False)) / 50
+    out["simplegan"] = {"steps": steps, "mean_distance_64": float(dist),
+                        "final_loss_d": float(losses["loss_d"][-1]),
+                        "final_loss_g": float(losses["loss_g"][-1]),
+                        "ms_per_step": secs / steps * 1e3,
+                        "launches_per_step": launches_per_step,
+                        "aten_calls_per_step": sum(e.count for e in events
+                                                   if e.key.startswith("aten::")) / 50,
+                        "int_latents_checked": int(ng.shape[0])}
+    times["simplegan_30000_steps_s"] = secs
+    times["simplegan_s"] = time.time() - t
+
+    # simpleGAN card against CPU: SIMPLEGAN_CMP_STEPS steps from one set of
+    # CPU draws, both modes, in four legs, so that the difference's growth shows
+    t = time.time()
+    gen = torch.Generator().manual_seed(4)
+    p0 = sg.init_params(gen)
+    draws = sg.make_train_draws(gen, SIMPLEGAN_CMP_STEPS)
+    leg = SIMPLEGAN_CMP_STEPS // 4   # even: the 1-based G schedule carries across legs
+    cmp = {}
+    for mode in ("matlab", "exact"):
+        pd, pc, rels, secs_dev = sg.SimpleGANParams(*(p.to(dev) for p in p0)), p0, [], 0.0
+        for i in range(0, SIMPLEGAN_CMP_STEPS, leg):
+            part = {k: v[i:i + leg] for k, v in draws.items()}
+            (pd, _), secs = wall(lambda: sg.train_from_draws(pd, **part, grad_mode=mode))
+            pc, _ = sg.train_from_draws(pc, **part, grad_mode=mode)
+            secs_dev += secs
+            # each tensor's largest difference over its layer's largest entry
+            # (weight and bias: a bias near zero has no scale of its own)
+            scale = {f[1:]: max(float(pc[pc._fields.index(k + f[1:])].abs().max())
+                                for k in "wb") for f in pc._fields}
+            rel = {f: float((a.cpu() - b).abs().max()) / scale[f[1:]]
+                   for f, a, b in zip(pc._fields, pd, pc)}
+            rels.append(max(rel.values()))
+            if not rels[-1] <= SIMPLEGAN_RTOL:
+                raise AssertionError(f"simpleGAN {mode}: after {i + leg} steps the card's "
+                                     f"parameters differ from the CPU's by {rel} of their "
+                                     "layers' largest entries")
+        cmp[mode] = {"max_rel_err_by_leg": rels,
+                     "card_ms_per_step": secs_dev / SIMPLEGAN_CMP_STEPS * 1e3}
+    out["simplegan_card_vs_cpu"] = cmp
+    times["simplegan_vs_cpu_s"] = time.time() - t
+
+    # selfcheck: in this process (its kernel launches counted here), then
+    # through its CLI
+    t = time.time()
+    rc = quiet(lambda: selfcheck.main(["--device", str(dev), "--json", f"{d}/selfcheck_in.json"]),
+               f"{d}/selfcheck_in.log")
+    cli = subprocess.run([sys.executable, "-m", "ofdmgan_tpu_torch.selfcheck", "--device",
+                          str(dev), "--json", f"{d}/selfcheck.json"],
+                         capture_output=True, text=True, timeout=600)
+    if rc != 0 or cli.returncode != 0 or "ALL PASSED" not in cli.stdout:
+        raise AssertionError(f"selfcheck failed (in process {rc}, CLI {cli.returncode}):\n"
+                             f"{cli.stdout[-3000:]}{cli.stderr[-3000:]}")
+    report = json.loads(open(f"{d}/selfcheck.json").read())
+    out["selfcheck"] = {"measured": report["pallas-datagen"].get("measured"),
+                        "launches": {k: v["launches"] for k, v in report.items() if k != "_meta"},
+                        "meta": report["_meta"]}
+    times["selfcheck_s"] = time.time() - t
+    out["times"] = times
+    return out
+
+
 def main() -> int:
     t0 = time.time()
     if not torch.cuda.is_available():
@@ -1311,7 +1566,19 @@ def main() -> int:
         raise AssertionError(f"the evaluation path launched {eval_launches}")
     log("eval", t, launches=eval_launches, **ev)
 
-    # ---- 9. report
+    # ---- 9. hardware verification and the FPGA handoff, on the checkpoints
+    # of phases train and quant; selfcheck launches both kernels
+    t = time.time()
+    dk.launches = 0
+    ck.launches = 0
+    ver = verify_phase(dev, "build/chip_smoke/checkpoints/final_model",
+                       "build/chip_smoke/quant/rtl_qat_residual/checkpoints/final_model")
+    verify_launches = {"datagen": dk.launches, "critic_grad": ck.launches}
+    if not all(verify_launches.values()):
+        raise AssertionError(f"the verification path launched {verify_launches}")
+    log("verify", t, launches=verify_launches, **ver)
+
+    # ---- 10. report
     db, dby = datagen_bound_ms(MAIN_B, 16)
     cb, cby = critic_bound_ms(MAIN_B)
     dg_main, cr_main = dg_times[f"L16_B{MAIN_B}"], cr_times[MAIN_B]
@@ -1325,7 +1592,8 @@ def main() -> int:
                               "train_scope": scope["fading"]["launches"]["datagen"],
                               "full": full["launches"]["datagen"],
                               "quant": quant_launches["datagen"],
-                              "eval": eval_launches["datagen"]}},
+                              "eval": eval_launches["datagen"],
+                              "verify": verify_launches["datagen"]}},
         {"name": "critic_grad", "route": "cuda", "source": "ofdmgan_tpu_torch/csrc/critic_grad.cu",
          "replaces": "ofdmgan_tpu/ops/pallas_critic.py:195", "launches": launches["critic_grad"],
          "max_abs_err": critic_err[MAIN_B], "ms": cr_main["ms"],
@@ -1335,7 +1603,8 @@ def main() -> int:
                               "train_scope": scope["fading"]["launches"]["critic_grad"],
                               "full": full["launches"]["critic_grad"],
                               "quant": quant_launches["critic_grad"],
-                              "eval": eval_launches["critic_grad"]}},
+                              "eval": eval_launches["critic_grad"],
+                              "verify": verify_launches["critic_grad"]}},
     ]
     log("total", t0)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -11,7 +11,9 @@ keys).
 Conv kernels are flax ``[K, C_in, C_out]`` and torch ``[C_out, C_in, K]``;
 the dense kernel is flax ``[in, out]`` and torch ``[out, in]``. Both maps are
 transposes, so each direction is the inverse of the other (and of
-``ofdmgan_tpu/utils/torch_port.py:17-19``).
+``ofdmgan_tpu/utils/torch_port.py:17-19``). The simpleGAN's parameters are
+a ``NamedTuple`` of eight arrays in both packages, in the same layout
+(``simplegan_from_numpy``, ``simplegan_to_numpy``).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from torch import nn
 
 from ..models import MiniDiscriminator, MiniGenerator
 from ..models.full_unet import FullDiscriminator, FullUNetGenerator, full_unet_layer_names
+from ..simplegan.model import SimpleGANParams
 from .params_io import flatten_tree, unflatten_tree
 
 # torch state_dict key -> flax tree path, for MiniGenerator and MiniDiscriminator
@@ -116,3 +119,17 @@ def to_jax_params(module: nn.Module) -> Dict[str, Any]:
     return unflatten_tree({
         p: _swap_layout(state_dict[k].detach().cpu().numpy().astype(np.float32))
         for k, p in table.items()})
+
+
+def simplegan_from_numpy(arrays, device=None) -> SimpleGANParams:
+    """The JAX package's ``SimpleGANParams`` (or any sequence of its eight
+    arrays in field order) -> the port's, float32 tensors on ``device``."""
+    return SimpleGANParams(*(torch.as_tensor(np.array(a, np.float32), device=device)
+                             for a in arrays))
+
+
+def simplegan_to_numpy(params: SimpleGANParams) -> Dict[str, np.ndarray]:
+    """The port's ``SimpleGANParams`` -> float32 numpy arrays by field name
+    (``ofdmgan_tpu.simplegan.SimpleGANParams(**...)`` takes them)."""
+    return {f: t.detach().cpu().numpy().astype(np.float32)
+            for f, t in zip(params._fields, params)}

@@ -27,7 +27,12 @@ at L = 256 by mean MSE within rtol 1e-3 (a decision or the P recursion
 amplifies rounding), GAN-Q bit for bit against the CPU's integer
 datapath on the card's own noisy frames (the two devices' frames differ by
 rounding, which can move a Q8.8 truncation), the report's statistics within
-rtol 1e-4.
+rtol 1e-4. Verification: the golden vectors' floats within atol 1e-6 and
+their Q8.8 files equal but where the two floats straddle a step (1 LSB);
+the proof's integer MSEs equal (its means are summed in float64 and its
+noise scaled on the host), its float MSEs within rtol 1e-5; the simpleGAN
+integer path bit for bit; selfcheck's training step launches each kernel
+(1 datagen, 2 critic-gradient).
 """
 
 import copy
@@ -444,3 +449,59 @@ def test_distributional_report_on_the_card_matches_the_cpu(cuda):
     ref = report(lambda i: tuple({k: v.cpu() for k, v in d.items()} for d in batches[i]))
     for k in ref:
         torch.testing.assert_close(got[k].cpu(), ref[k], rtol=1e-4, atol=1e-6, msg=k)
+
+
+def test_golden_vectors_on_the_card_match_the_cpu(cuda, tmp_path):
+    from ofdmgan_tpu_torch.verify import golden
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(3)
+        g = MiniGenerator()
+    x = torch.randn(1, 2, 16, generator=torch.Generator().manual_seed(4)).numpy()
+    golden.generate_golden_vectors(copy.deepcopy(g).to(cuda), x, str(tmp_path / "cuda"))
+    golden.generate_golden_vectors(g, x, str(tmp_path / "cpu"))
+    y_c, y = (np.load(tmp_path / d / "output_float.npy") for d in ("cuda", "cpu"))
+    np.testing.assert_allclose(y_c, y, rtol=0, atol=1e-6)
+    q_c, q = (np.load(tmp_path / d / "output_q88.npy") for d in ("cuda", "cpu"))
+    np.testing.assert_array_equal(q_c, golden.q88_int16(y_c))
+    straddle = golden.q88_int16(y_c) != golden.q88_int16(y)
+    np.testing.assert_array_equal(q_c[~straddle], q[~straddle])
+    assert np.abs(q_c.astype(int) - q).max() <= 1
+    for name in ("input_float.npy", "input_q88.npy", "input.hex", "golden_metadata.json"):
+        assert (tmp_path / "cuda" / name).read_bytes() == (tmp_path / "cpu" / name).read_bytes()
+
+
+def test_proof_integer_mses_on_the_card_equal_the_cpu(cuda):
+    from ofdmgan_tpu_torch.verify import proof
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(5)
+        g = MiniGenerator()
+    draws = proof.make_proof_draws(torch.Generator().manual_seed(6))
+    g_c = copy.deepcopy(g).to(cuda)
+    for snr in (0.0, 15.0, 30.0):
+        got = proof.int_datapath_enhancement_from_draws(g_c, draws, snr)
+        want = proof.int_datapath_enhancement_from_draws(g, draws, snr)
+        assert got["mse_before"] == want["mse_before"] and got["mse_after"] == want["mse_after"]
+        got = proof.signal_enhancement_from_draws(g_c, draws, snr)
+        want = proof.signal_enhancement_from_draws(g, draws, snr)
+        assert got["mse_after"] == pytest.approx(want["mse_after"], rel=1e-5)
+
+
+def test_simplegan_integer_path_on_the_card_equals_the_cpu(cuda):
+    from ofdmgan_tpu_torch import simplegan as sg
+    p = sg.init_params(torch.Generator().manual_seed(7))
+    p, _ = sg.train_from_draws(p, **sg.make_train_draws(torch.Generator().manual_seed(8), 200))
+    q, q_c = sg.quantize_params(p), sg.quantize_params(sg.SimpleGANParams(*(t.to(cuda) for t in p)))
+    assert all(torch.equal(q[k], q_c[k].cpu()) for k in q)
+    ng = torch.arange(-2048, 2048, 4).reshape(-1, 2)
+    img, img_c = sg.generator_int_forward(q, ng), sg.generator_int_forward(q_c, ng.to(cuda))
+    assert img_c.device.type == "cuda" and torch.equal(img_c.cpu(), img)
+    assert torch.equal(sg.discriminator_int_forward(q_c, img_c).cpu(),
+                       sg.discriminator_int_forward(q, img))
+
+
+def test_selfcheck_training_takes_both_kernels(cuda):
+    from ofdmgan_tpu_torch import selfcheck
+    before = (dk.launches, ck.launches)
+    assert selfcheck._check_training(cuda) == {"routes": {"datagen": "kernel",
+                                                          "critic": "kernel"}}
+    assert (dk.launches - before[0], ck.launches - before[1]) == (1, 2)

@@ -1,6 +1,6 @@
 """The port stands alone: no JAX, no PyYAML, nothing of ``ofdmgan_tpu``, and
-no Pillow at import time (the GPU's machine has none; ``load_image`` imports
-it when called).
+no Pillow or matplotlib at import time (the GPU's machine has neither;
+``load_image`` imports Pillow when called, the plots matplotlib).
 
 Every module of ``ofdmgan_tpu_torch`` is imported in a fresh interpreter in
 which those modules cannot be imported, and the sources and
@@ -20,11 +20,13 @@ import torch
 
 REPO = Path(__file__).resolve().parents[1]
 PACKAGE = REPO / "ofdmgan_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "PIL", "ofdmgan_tpu")
-# each imported inside a function of one module, where it is needed, and
-# never at module level
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "yaml", "PIL", "matplotlib",
+             "ofdmgan_tpu")
+# each imported inside a function of one module (None: of any module), where
+# it is needed, and never at module level
 IN_FUNCTIONS_ONLY = {"yaml": "ofdmgan_tpu_torch/config.py",
-                     "PIL": "ofdmgan_tpu_torch/signal/image_ofdm.py"}
+                     "PIL": "ofdmgan_tpu_torch/signal/image_ofdm.py",
+                     "matplotlib": None}
 MODULES = ("ofdmgan_tpu_torch.signal.channel", "ofdmgan_tpu_torch.signal.image_ofdm",
            "ofdmgan_tpu_torch.signal.qam", "ofdmgan_tpu_torch.signal.ofdm",
            "ofdmgan_tpu_torch.training.trainer", "ofdmgan_tpu_torch.train",
@@ -36,7 +38,14 @@ MODULES = ("ofdmgan_tpu_torch.signal.channel", "ofdmgan_tpu_torch.signal.image_o
            "ofdmgan_tpu_torch.eval.benchmark", "ofdmgan_tpu_torch.eval.ber",
            "ofdmgan_tpu_torch.eval.distributional", "ofdmgan_tpu_torch.eval.loading",
            "ofdmgan_tpu_torch.benchmark_comparison", "ofdmgan_tpu_torch.enhance",
-           "ofdmgan_tpu_torch.eval_checkpoint", "ofdmgan_tpu_torch.distributional_report")
+           "ofdmgan_tpu_torch.eval_checkpoint", "ofdmgan_tpu_torch.distributional_report",
+           "ofdmgan_tpu_torch.verify.golden", "ofdmgan_tpu_torch.verify.arch_check",
+           "ofdmgan_tpu_torch.verify.proof", "ofdmgan_tpu_torch.verify.cosim_report",
+           "ofdmgan_tpu_torch.verify.vcd", "ofdmgan_tpu_torch.verify.rtl_cycle_model",
+           "ofdmgan_tpu_torch.make_rtl_handoff", "ofdmgan_tpu_torch.vcd_crosscheck",
+           "ofdmgan_tpu_torch.simplegan", "ofdmgan_tpu_torch.simplegan.model",
+           "ofdmgan_tpu_torch.simplegan.export", "ofdmgan_tpu_torch.simplegan.train_cli",
+           "ofdmgan_tpu_torch.selfcheck")
 
 IMPORT_ALL = f"""
 import sys
@@ -67,38 +76,50 @@ def test_every_module_imports_without_jax_yaml_or_the_jax_package():
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     lines = out.stdout.strip().splitlines()
-    assert int(lines[-1]) >= 45
+    assert int(lines[-1]) >= 58
     assert set(MODULES) <= set(lines[-2].split())
 
 
 @pytest.mark.parametrize("path", sorted(PACKAGE.rglob("*.py")) + [REPO / "chip_smoke.py"],
                          ids=lambda p: str(p.relative_to(REPO)))
 def test_sources_import_nothing_forbidden(path):
-    # PyYAML (config.load_config) and Pillow (image_ofdm.load_image) may be
-    # imported inside a function of their module but never at module level;
-    # the rest nowhere
+    # PyYAML (config.load_config), Pillow (image_ofdm.load_image) and
+    # matplotlib (the plots) may be imported inside a function of their
+    # modules but never at module level; the rest nowhere
     assert not set(_imports(path, False)) & (set(FORBIDDEN) - set(IN_FUNCTIONS_ONLY))
     for name, home in IN_FUNCTIONS_ONLY.items():
-        assert name not in set(_imports(path, path == REPO / home))
+        assert name not in set(_imports(path, home is None or path == REPO / home))
 
 
-def test_a_module_level_pillow_import_fails_the_check(tmp_path):
+@pytest.mark.parametrize("name, line", [("PIL", "from PIL import Image"),
+                                        ("matplotlib", "import matplotlib.pyplot as plt")])
+def test_a_module_level_pillow_import_fails_the_check(tmp_path, name, line):
     src = tmp_path / "mod.py"
-    src.write_text("import numpy\nfrom PIL import Image\n")
-    assert "PIL" in set(_imports(src, True))
-    src.write_text("def load():\n    from PIL import Image\n    return Image\n")
-    assert "PIL" not in set(_imports(src, True)) and "PIL" in set(_imports(src, False))
+    src.write_text(f"import numpy\n{line}\n")
+    assert name in set(_imports(src, True))
+    src.write_text(f"def load():\n    {line}\n    return 0\n")
+    assert name not in set(_imports(src, True)) and name in set(_imports(src, False))
 
 
 def test_entry_points_raise_without_a_gpu(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present")
+    from ofdmgan_tpu_torch import make_rtl_handoff, selfcheck, vcd_crosscheck
     from ofdmgan_tpu_torch import train as train_cli
     from ofdmgan_tpu_torch.device import resolve_device
+    from ofdmgan_tpu_torch.simplegan import train_cli as simplegan_cli
     from ofdmgan_tpu_torch.training.trainer import Trainer
+    from ofdmgan_tpu_torch.verify import arch_check, cosim_report
 
+    out = str(tmp_path)
     for call in (resolve_device, Trainer,
-                 lambda: train_cli.main(["--checkpoint_dir", str(tmp_path)])):
+                 lambda: train_cli.main(["--checkpoint_dir", out]),
+                 lambda: make_rtl_handoff.main(["--out_dir", out, "--rom_file", f"{out}/r.v"]),
+                 lambda: simplegan_cli.main(["--steps", "2", "--output_dir", out]),
+                 lambda: selfcheck.main([]),
+                 lambda: vcd_crosscheck.main(["--rtl_dir", out]),
+                 lambda: arch_check.run_full_verification(output_dir=out),
+                 lambda: cosim_report.run_cosim_verification(output_dir=out)):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")
