@@ -41,8 +41,21 @@ RTL handoff bundle (``make_rtl_handoff``) from phase ``quant``'s
 RTL-residual generator, the simpleGAN through its CLI at the recipe's
 30,000 steps and 2,000 steps on the card and the CPU from one draw set,
 and ``selfcheck`` (in this process and as a CLI), whose training step
-and kernel statistics launch both kernels. Every phase
-prints one JSON line with its wall seconds as it ends. Any failed check raises, and the
+and kernel statistics launch both kernels. Phase ``serve`` exports phase
+``train``'s mini checkpoint, phase ``quant``'s RTL-residual one
+(``--residual``) and phase ``full``'s U-Net (bf16) with ``export_serving``
+on the card and on the CPU, each selftested and reloaded here; runs
+``bench_infer`` for both families at full width (mini batch 65,536, full
+512), datagen in the loop and resident, and the full model unfused, with
+128 applies a window (64 for the full model), half the CLI's default, for
+time; checks the repaired numerics (TF32 off in a fresh process that only
+imports the port and writes golden vectors with a bare ``.cuda()`` model;
+the ``bfloat16`` mode's critic forward on the card against the CPU's, and
+its routes); takes one full step with ``--remat`` and one without from
+phase ``full``'s trained state, then times both with their peak memory;
+and runs the image-transmission study with the mini generator on the card
+against the CPU. Every phase prints one JSON line with its wall seconds as
+it ends. Any failed check raises, and the
 script exits non-zero. The last lines are the kernel table, the card's name
 and power limit, and the result line.
 
@@ -51,7 +64,10 @@ atol 1e-6 at every frame length held, 8 to 1024 samples (the same float32
 arithmetic; only the order of the phase scan and the frame reductions and
 the rounding of fused multiply-adds differ). The critic-gradient kernel against
 its plain version and against autograd rtol 1e-4, atol 1e-4 times the
-tensor's largest entry: the batch sums are taken in another order. One
+tensor's largest entry: the batch sums are taken in another order; the same
+for its bf16 form against its plain version's and against autograd under
+bf16 matmul precision (a value summed in another order may round to the
+other bf16 neighbour). One
 outer step through the kernels and one through the plain path (FFT datagen,
 autograd critic) from the same state and draws: each parameter tensor's
 update agrees within 1e-3 of that update's largest entry. The kernel table
@@ -123,7 +139,25 @@ amplifying (on an H100: at most 1.1e-7 in ``matlab`` mode and 4.6e-8 in
 tensor's own largest entry is no scale where a bias crosses zero (the
 critic's output bias is 6.2e-6 after 1,000 steps, where its 1.7e-9
 difference read 2.8e-4); selfcheck ``ALL PASSED`` in both runs, its kernel statistics
-within 0.01 of the FFT datagen's.
+within 0.01 of the FFT datagen's. Phase ``serve``: a mini export on the card
+against the CPU's export on one CPU-made batch within atol 1e-6 (one float32
+forward, summed in another order); the full bf16 export within 3 times the
+CPU export's own distance from the float32 forward (as phase ``eval``
+holds the serving forward: two bf16 forwards that round their products
+and activations in different places differ by about that distance; whether
+it is within 2e-2, the JAX package's bound for its own artifact, is
+reported); the bench's datagen launches exactly one per apply in the
+datagen-in-loop windows and none in the resident ones; the ``bfloat16``
+critic forward, card against CPU, rtol 1e-5, atol 1e-6 (bf16 products are
+exact in float32), but for scores where a layer-1 activation summed in
+another order rounds to the other bf16 neighbour: at most 1 in 1,000, each
+within one bf16 step (2^-8) of the scores' scale; the ``bfloat16`` step launches the datagen kernel once
+and the critic kernel n_critic times, and its kernel step takes its
+reference step's update within 1e-3 of each tensor's largest update (from
+one state, the second step); the ``--remat`` step's update within 1e-6 of each
+tensor's largest update of the plain step's, with cuDNN's deterministic
+algorithms (recomputation computes the same function); the image study's
+PSNR, SSIM, NMSE and BER within rtol 1e-4 of the CPU's.
 """
 
 from __future__ import annotations
@@ -179,6 +213,15 @@ SIMPLEGAN_CMP_STEPS = 2000  # verify: simpleGAN steps on the card and the CPU fr
 SIMPLEGAN_RTOL = 1e-4      # verify: their parameters, of each layer's largest entry
 SIMPLEGAN_FILE_LINES = {"gen_w1.txt": 6, "gen_b1.txt": 3, "gen_w2.txt": 27, "gen_b2.txt": 9,
                         "disc_w1.txt": 27, "disc_b1.txt": 3, "disc_w2.txt": 3, "disc_b2.txt": 1}
+SERVE_MINI_ATOL = 1e-6     # serve: a mini export reloaded on the card against the CPU's export
+SERVE_FULL_FACTOR = 3.0    # serve: the full bf16 export, card against CPU, over the CPU
+                           # export's own distance from the float32 forward (as EVAL_FORM_FACTOR)
+SERVE_BF16_ATOL = 2e-2     # serve: reported beside it (tests/test_export_serving.py's bound)
+SERVE_SCAN_STEPS = 128     # serve: bench_infer's applies per window, half its 256 (full: 64)
+SERVE_BF16_RTOL = 1e-5     # serve: a bfloat16-mode critic forward, card against CPU
+REMAT_RTOL = 1e-6          # serve: a --remat full step against the plain one, of each
+                           # tensor's largest update (deterministic cuDNN)
+FULL_STEP_PEAK_GB = 36.40  # the full step's peak memory recorded before (PERF.md section 5)
 TRAIN_LOG_KEYS = {"train/d_loss", "train/g_loss", "train/wasserstein", "train/rec_loss",
                   "train/gp", "val/rec_loss", "val/mse"}   # the reference's log keys
 
@@ -1347,6 +1390,258 @@ def verify_phase(dev, mini_ckpt: str, rtl_ckpt: str) -> dict:
     return out
 
 
+TF32_PROBE = """
+import json, sys
+import numpy as np
+import torch
+before = [torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32]
+from ofdmgan_tpu_torch.models import MiniGenerator
+from ofdmgan_tpu_torch.verify import golden
+g = MiniGenerator().cuda()
+x = np.random.default_rng(0).standard_normal((1, 2, 16)).astype(np.float32)
+golden.generate_golden_vectors(g, x, sys.argv[1])
+print(json.dumps({"before_import": before,
+                  "after": [torch.backends.cuda.matmul.allow_tf32,
+                            torch.backends.cudnn.allow_tf32]}))
+"""
+
+
+def _bf16_draws(dev, seed: int) -> tuple:
+    """One mini batch (the FFT datagen's) and its penalty uniforms on
+    ``dev``, from ``seed``."""
+    from ofdmgan_tpu_torch.signal import datagen as sdg
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    batch = sdg.synthetic_batch_from_draws(sdg.make_draws(gen, MAIN_B, 16), sdg.DatagenConfig())
+    return batch, [torch.rand(MAIN_B, generator=gen, device=dev) for _ in range(5)]
+
+
+def serve_phase(dev, mini_ckpt: str, rtl_ckpt: str, full_ckpt: str) -> dict:
+    """Phase ``serve``: the serving export of phase ``train``'s mini
+    checkpoint, of phase ``quant``'s RTL-residual one (``--residual``) and of
+    phase ``full``'s full U-Net (bf16), each with its selftest on the card
+    and reloaded against the CPU's export of the same checkpoint; the
+    inference bench at full width, datagen in the loop and resident, and the
+    full model unfused; the repaired numerics (TF32 off in a fresh process
+    that never calls ``resolve_device``; the bfloat16 mode's critic forward
+    on the card against the CPU's and its routes); a ``--remat`` full step
+    against the plain step, with the peak memory and time of each; and the
+    image-transmission study on the card against the CPU. Returns the phase
+    line's fields; printed output goes to ``build/chip_smoke/serve/``."""
+    import numpy as np
+    from ofdmgan_tpu_torch import bench_infer, export_serving
+    from ofdmgan_tpu_torch.config import Config
+    from ofdmgan_tpu_torch.eval.loading import build_generator
+    from ofdmgan_tpu_torch.models import MiniDiscriminator, MiniGenerator
+    from ofdmgan_tpu_torch.ops import critic_kernel as ck, datagen_kernel as dk
+    from ofdmgan_tpu_torch.signal import datagen as sdg
+    from ofdmgan_tpu_torch.training import wgan_gp
+    from ofdmgan_tpu_torch.training.schedules import make_adam
+    from ofdmgan_tpu_torch.training.trainer import Trainer, build_models
+    from ofdmgan_tpu_torch.utils.params_io import load_params_tree
+    from ofdmgan_tpu_torch.viz import image_transmission as it
+
+    d = "build/chip_smoke/serve"
+    out, times = {}, {}
+
+    # the exports: each program reloaded in this process and run on one
+    # CPU-made batch, the card's on the card, the CPU's on the CPU
+    t = time.time()
+    exports = {}
+    for name, ckpt, model, extra in (("mini", mini_ckpt, "mini", []),
+                                     ("mini_residual", rtl_ckpt, "mini", ["--residual"]),
+                                     ("full", full_ckpt, "full", [])):
+        meta = {}
+        for where in ("cuda", "cpu"):
+            argv = ["--device", "cuda:0" if where == "cuda" else "cpu", "--model", model,
+                    "--checkpoint", ckpt, "--out", f"{d}/{name}_{where}", *extra]
+            meta[where] = quiet(lambda: export_serving.main(argv), f"{d}/export_{name}_{where}.log")
+        L = 1024 if model == "full" else 16
+        x = torch.randn(8 if model == "full" else 4096, L, 2,
+                        generator=torch.Generator().manual_seed(31))
+        with torch.no_grad():
+            y_card = torch.export.load(f"{d}/{name}_cuda.pt2").module()(x.to(dev)).cpu()
+            y_cpu = torch.export.load(f"{d}/{name}_cpu.pt2").module()(x)
+        err = float((y_card - y_cpu).abs().max())
+        row = {"device": meta["cuda"]["device"], "artifact_bytes": meta["cuda"]["artifact_bytes"],
+               "selftest_max_abs_diff": {k: m["selftest_max_abs_diff"] for k, m in meta.items()},
+               "card_vs_cpu_max_abs_err": err}
+        if model == "full":
+            fwd32, _ = export_serving.build_forward("full", load_params_tree(ckpt), False,
+                                                    "float32", L)
+            with torch.no_grad():
+                own = float((y_cpu - fwd32.eval()(x)).abs().max())
+            limit = SERVE_FULL_FACTOR * own
+            row.update(cpu_vs_float32_max_abs=own, within_bf16_atol=err <= SERVE_BF16_ATOL)
+        else:
+            limit = SERVE_MINI_ATOL
+        if not err <= limit or not bool(torch.isfinite(y_card).all()):
+            raise AssertionError(f"the {name} export on the card is {err:.3e} from the CPU's "
+                                 f"(limit {limit:.3e})")
+        exports[name] = row
+    out["exports"] = exports
+    times["export_s"] = time.time() - t
+
+    # the inference bench: datagen in the loop (one datagen launch per
+    # apply) and resident (none), for both families, and the full model
+    # unfused; full-width batches, SERVE_SCAN_STEPS applies per window
+    t = time.time()
+    bench = {}
+    for run, extra in (("datagen_in_loop", []), ("resident", ["--resident"]),
+                       ("unfused", ["--models", "full", "--unfused"])):
+        argv = ["--device", "cuda:0", "--scan_steps", str(SERVE_SCAN_STEPS),
+                "--profile_dir", f"{d}/profile_{run}", *extra]
+        for r in quiet(lambda: bench_infer.main(argv), f"{d}/bench_{run}.log"):
+            row, st = r["row"], r["stats"]
+            steps = (SERVE_SCAN_STEPS if row["model"].startswith("mini")
+                     else max(SERVE_SCAN_STEPS // 2, 8))
+            want = 0 if run == "resident" else steps
+            if st["datagen_launches_per_window"] != want or st["idle_share"] is None:
+                raise AssertionError(f"bench {run} {row['model']}: {st} (want {want} datagen "
+                                     "launches a window and an idle share)")
+            bench[f"{row['model']}_{row['input']}"] = {**row, **st}
+    out["bench"] = bench
+    times["bench_s"] = time.time() - t
+
+    # C.2: TF32 is off once the port is imported, in a process that calls
+    # no resolve_device (golden vectors of a bare .cuda() model)
+    t = time.time()
+    probe = subprocess.run([sys.executable, "-c", TF32_PROBE, f"{d}/golden_probe"],
+                           capture_output=True, text=True, timeout=300)
+    if probe.returncode != 0:
+        raise AssertionError(f"the TF32 probe failed: {probe.stderr[-2000:]}")
+    flags = json.loads(probe.stdout.strip().splitlines()[-1])
+    if flags["after"] != [False, False]:
+        raise AssertionError(f"TF32 is on after importing the port: {flags}")
+    out["tf32_probe"] = flags
+
+    # C.1: the bfloat16 mode's critic forward, card against CPU (bf16
+    # products are exact in float32); its routes (both kernels, the critic
+    # kernel in its bf16 form) and its kernel step against its reference
+    # step on one batch (the second step from one state: Adam's first is a
+    # sign), within STEP_RTOL of each tensor's largest update
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(3)
+        critic = MiniDiscriminator()
+    a, b = torch.randn(2, 4096, 16, 2, generator=torch.Generator().manual_seed(32)).unbind(0)
+    with torch.no_grad():
+        f32 = critic(a, b)
+        with wgan_gp.matmul_precision("bfloat16"):
+            y_cpu = critic(a, b)
+            y_card = copy.deepcopy(critic).to(dev)(a.to(dev), b.to(dev)).cpu()
+    # every score within SERVE_BF16_RTOL but where a layer-1 activation,
+    # summed in another order, rounded to the other bf16 neighbour (1 in
+    # 2,048 scores measured on one H100): at most 1 in 1,000, each within
+    # one bf16 step of the scores' scale
+    bf_diff = (y_card - y_cpu).abs()
+    straddles = int((bf_diff > 1e-6 + SERVE_BF16_RTOL * y_cpu.abs()).sum())
+    if (straddles > max(1, y_cpu.numel() // 1000)
+            or not float(bf_diff.max()) <= 2 ** -8 * float(y_cpu.abs().max())):
+        raise AssertionError(f"the bfloat16-mode critic on the card: {straddles} scores past "
+                             f"rtol {SERVE_BF16_RTOL}, largest difference {float(bf_diff.max())}")
+    bf_steps = {}
+    for name, reference in (("kernel", False), ("reference", True)):
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(3)
+            g_bf, d_bf = MiniGenerator().to(dev), MiniDiscriminator().to(dev)
+        bf_steps[name] = wgan_gp.TrainStep(
+            g_bf, d_bf, make_adam(g_bf.parameters(), 2e-4), make_adam(d_bf.parameters(), 2e-4),
+            sdg.DatagenConfig(), wgan_gp.LossConfig(), MAIN_B, reference=reference,
+            matmul_precision="bfloat16")
+    step = bf_steps["kernel"]
+    before = (dk.launches, ck.launches)
+    metrics = step(torch.Generator(device=dev).manual_seed(33))
+    bf_launches = {"datagen": dk.launches - before[0], "critic_grad": ck.launches - before[1]}
+    bf_routes = {"datagen": step.datagen_route, "critic": step.critic_route}
+    if (bf_routes != {"datagen": "kernel", "critic": "kernel"}
+            or bf_launches != {"datagen": 1, "critic_grad": step.loss_cfg.n_critic}
+            or not all(bool(torch.isfinite(v)) for v in metrics.values())):
+        raise AssertionError(f"the bfloat16 step: routes {bf_routes}, launches {bf_launches}, "
+                             f"metrics {metrics}")
+    bf_steps["reference"].run(*_bf16_draws(dev, 33))   # the kernel step's first step
+    step.generator.load_state_dict(bf_steps["reference"].generator.state_dict())
+    step.critic.load_state_dict(bf_steps["reference"].critic.state_dict())
+    for new, old in ((step.opt_g, bf_steps["reference"].opt_g),
+                     (step.opt_d, bf_steps["reference"].opt_d)):
+        new.opt.load_state_dict(copy.deepcopy(old.opt.state_dict()))
+    start = {n: p.detach().clone() for n, p in all_params(step).items()}
+    for s_ in bf_steps.values():
+        s_.run(*_bf16_draws(dev, 34))
+    bf_step_diff, bf_step_rel = updates_agree(
+        start, all_params(step), all_params(bf_steps["reference"]), STEP_RTOL,
+        "bfloat16 kernel and reference steps")
+    out["bf16_mode"] = {"critic_card_vs_cpu_max_abs_err": float(bf_diff.max()),
+                        "critic_scores_straddling": straddles,
+                        "critic_bf16_vs_float32_max_abs": float((y_cpu - f32).abs().max()),
+                        "routes": bf_routes, "launches": bf_launches,
+                        "kernel_step_update_max_abs_diff": bf_step_diff,
+                        "kernel_step_update_max_rel_diff": bf_step_rel}
+    times["numerics_s"] = time.time() - t
+
+    # --remat: phase full's trained state (parameters and Adam moments), one
+    # step with recomputation and one without on one batch, with cuDNN's
+    # deterministic algorithms; then the time and peak memory of each with
+    # cuDNN's default algorithms, as phase full times its step
+    t = time.time()
+    base = Config(checkpoint_dir=f"{d}/full_checkpoints", log_dir=f"{d}/full_logs",
+                  export_after_training=False)
+    cfg = dataclasses.replace(base, frame_length=FULL_L,
+                              training=dataclasses.replace(base.training, batch_size=FULL_B))
+    g, dd = build_models(cfg, "full", seed=0)
+    trainer = Trainer(cfg, samples_per_epoch=FULL_STEPS * FULL_B, val_samples=FULL_B, seed=0,
+                      device=dev, generator=g, discriminator=dd)
+    trainer.load_checkpoint(full_ckpt)
+    gen = torch.Generator(device=dev).manual_seed(34)
+    batch = dk.synthetic_batch(gen, FULL_B, trainer.dg_cfg)
+    alphas = [torch.rand(FULL_B, generator=gen, device=dev)
+              for _ in range(trainer.loss_cfg.n_critic)]
+    steps = {"plain": clone_step(trainer, False), "remat": clone_step(trainer, False)}
+    steps["remat"].remat = True
+    start = {n: p.detach().clone() for n, p in all_params(steps["plain"]).items()}
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        m = {k: {n: float(v) for n, v in s.run(batch, alphas).items()} for k, s in steps.items()}
+        torch.cuda.synchronize()
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    remat_abs, remat_rel = updates_agree(start, all_params(steps["remat"]),
+                                         all_params(steps["plain"]), REMAT_RTOL,
+                                         "remat and plain full steps")
+    del batch
+    ms, peak = {}, {}
+    for name in ("plain", "remat", "remat", "plain"):
+        t_ms, p = timed_steps(steps[name], trainer.rng)
+        ms.setdefault(name, []).append(t_ms)
+        peak[name] = max(peak.get(name, 0), p)
+    out["remat"] = {"update_max_abs_diff": remat_abs, "update_max_rel_diff": remat_rel,
+                    "metrics": m, "ms_per_step": ms,
+                    "peak_memory_gb": {k: v / 1e9 for k, v in peak.items()},
+                    "recorded_full_step_peak_gb": FULL_STEP_PEAK_GB}
+    del steps, trainer
+    times["remat_s"] = time.time() - t
+
+    # the image-transmission study with phase train's mini generator, on
+    # the card and on the CPU from one set of CPU draws
+    t = time.time()
+    g_cpu = build_generator(load_params_tree(mini_ckpt), "mini", 16)
+    sims = {"cuda": it.ImageOFDMSimulator(generator=copy.deepcopy(g_cpu).to(dev), device=dev),
+            "cpu": it.ImageOFDMSimulator(generator=g_cpu)}
+    img, snrs = it.builtin_test_image(), [0.0, 10.0, 20.0, 30.0]
+    draws = [sims["cpu"].make_draws(torch.Generator().manual_seed(40 + i))
+             for i in range(len(snrs))]
+    res = {k: [dataclasses.asdict(r) for r in s.evaluate_from_draws(img, snrs, draws)]
+           for k, s in sims.items()}
+    for rc, rp in zip(res["cuda"], res["cpu"]):
+        for k, v in rp.items():
+            if isinstance(v, float) and not math.isclose(rc[k], v, rel_tol=1e-4, abs_tol=1e-6):
+                raise AssertionError(f"image transmission at {rp['snr_db']} dB: {k} {rc[k]} "
+                                     f"on the card, {v} on the CPU")
+    out["image_transmission"] = res["cuda"]
+    times["viz_s"] = time.time() - t
+    out["times"] = times
+    return out
+
+
 def main() -> int:
     t0 = time.time()
     if not torch.cuda.is_available():
@@ -1365,7 +1660,7 @@ def main() -> int:
     from ofdmgan_tpu_torch.signal import datagen as sdg
     from ofdmgan_tpu_torch.signal.impairments import ImpairmentConfig
     from ofdmgan_tpu_torch.training.trainer import Trainer
-    from ofdmgan_tpu_torch.training.wgan_gp import LossConfig, critic_loss_fn
+    from ofdmgan_tpu_torch.training.wgan_gp import LossConfig, critic_loss_fn, matmul_precision
 
     dev = resolve_device("cuda")
 
@@ -1454,7 +1749,7 @@ def main() -> int:
         torch.manual_seed(7)
         critic = MiniDiscriminator().to(dev)
         generator = MiniGenerator().to(dev)
-    critic_err = {}
+    critic_err, critic_err_bf16 = {}, {}
     cr_times = {}
     for b in CRITIC_BATCHES:
         clean = torch.randn(b, 16, 2, generator=gen, device=dev)
@@ -1476,6 +1771,25 @@ def main() -> int:
         for name in aux_auto:
             for what, r in (("plain", ref_aux[name]), ("autograd", aux_auto[name])):
                 check_close(aux[name], r, 1e-4, 1e-5, f"critic B={b} {name} vs {what}")
+        # the bf16 form (the step's matmul_precision="bfloat16") at the same
+        # tolerances, against its plain version and autograd's bf16 operands
+        grads_bf, aux_bf = ck.critic_grad(critic, clean, fake, noisy, alpha, 10.0, bf16=True)
+        ref_bf, ref_aux_bf = ck.critic_grad_packed(critic, clean, fake, noisy, alpha, 10.0,
+                                                   bf16=True)
+        with matmul_precision("bfloat16"):
+            loss, aux_auto_bf = critic_loss_fn(critic, lambda x: fake,
+                                               {"noisy": noisy, "clean": clean}, alpha,
+                                               LossConfig())
+            grads_auto_bf = torch.autograd.grad(loss, list(critic.parameters()))
+        for (name, _), g_auto in zip(critic.named_parameters(), grads_auto_bf):
+            for what, r in (("plain", ref_bf[name]), ("autograd", g_auto)):
+                check_close(grads_bf[name], r, 1e-4, 1e-4 * float(r.abs().max()) + 1e-7,
+                            f"bf16 critic B={b} {name} vs {what}")
+            critic_err_bf16[b] = max(critic_err_bf16.get(b, 0.0),
+                                     float((grads_bf[name] - ref_bf[name]).abs().max()))
+        for name in aux_auto_bf:
+            for what, r in (("plain", ref_aux_bf[name]), ("autograd", aux_auto_bf[name])):
+                check_close(aux_bf[name], r, 1e-4, 1e-5, f"bf16 critic B={b} {name} vs {what}")
         if b in CRITIC_TIMED:
             def autograd_step():
                 loss, _ = critic_loss_fn(critic, generator, {"noisy": noisy, "clean": clean},
@@ -1490,12 +1804,15 @@ def main() -> int:
                     lambda: ck.critic_grad_packed(critic, clean, fake, noisy, alpha, 10.0)),
                 "autograd_ms": time_ms(autograd_step),
                 "bound_ms": critic_bound_ms(b)[0],
+                "bf16_device_us_per_launch": profiled_us_per_call(
+                    lambda: ck.critic_grad(critic, clean, fake, noisy, alpha, 10.0, bf16=True),
+                    "critic_grad"),
             }
             if b > MAIN_B:
                 fn, args, _out, _scratch = ck.prepare(critic, clean, fake, noisy, alpha, 10.0)
                 cr_times[b]["back_to_back_us_per_launch"] = back_to_back_us_per_launch(fn, args)
                 del _out, _scratch
-    log("critic", t, max_abs_err=critic_err, times=cr_times)
+    log("critic", t, max_abs_err=critic_err, max_abs_err_bf16=critic_err_bf16, times=cr_times)
 
     # ---- 4. train through both kernels with the config defaults
     t = time.time()
@@ -1578,7 +1895,21 @@ def main() -> int:
         raise AssertionError(f"the verification path launched {verify_launches}")
     log("verify", t, launches=verify_launches, **ver)
 
-    # ---- 10. report
+    # ---- 10. serving: the exports, the inference bench, the repaired
+    # numerics, --remat and the image study; the datagen kernel feeds the
+    # bench's loop and the steps
+    t = time.time()
+    dk.launches = 0
+    ck.launches = 0
+    srv = serve_phase(dev, "build/chip_smoke/checkpoints/final_model",
+                      "build/chip_smoke/quant/rtl_qat_residual/checkpoints/final_model",
+                      "build/chip_smoke/full/checkpoints/final_model")
+    serve_launches = {"datagen": dk.launches, "critic_grad": ck.launches}
+    if serve_launches["datagen"] <= 0 or serve_launches["critic_grad"] <= 0:
+        raise AssertionError(f"the serving path launched {serve_launches}")
+    log("serve", t, launches=serve_launches, **srv)
+
+    # ---- 11. report
     db, dby = datagen_bound_ms(MAIN_B, 16)
     cb, cby = critic_bound_ms(MAIN_B)
     dg_main, cr_main = dg_times[f"L16_B{MAIN_B}"], cr_times[MAIN_B]
@@ -1593,7 +1924,8 @@ def main() -> int:
                               "full": full["launches"]["datagen"],
                               "quant": quant_launches["datagen"],
                               "eval": eval_launches["datagen"],
-                              "verify": verify_launches["datagen"]}},
+                              "verify": verify_launches["datagen"],
+                              "serve": serve_launches["datagen"]}},
         {"name": "critic_grad", "route": "cuda", "source": "ofdmgan_tpu_torch/csrc/critic_grad.cu",
          "replaces": "ofdmgan_tpu/ops/pallas_critic.py:195", "launches": launches["critic_grad"],
          "max_abs_err": critic_err[MAIN_B], "ms": cr_main["ms"],
@@ -1604,7 +1936,8 @@ def main() -> int:
                               "full": full["launches"]["critic_grad"],
                               "quant": quant_launches["critic_grad"],
                               "eval": eval_launches["critic_grad"],
-                              "verify": verify_launches["critic_grad"]}},
+                              "verify": verify_launches["critic_grad"],
+                              "serve": serve_launches["critic_grad"]}},
     ]
     log("total", t0)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -9,7 +9,12 @@ hand-written CUDA kernels here (``csrc/``), built with ``nvcc`` into
 plain-C shared libraries and loaded through ``ctypes`` (``ops/build.py``).
 
 Layout convention: signals are channels-last ``[batch, length, 2]`` (I/Q),
-as in the reference. Numerics are full float32 (``device.py``).
+as in the reference. Numerics are full float32: importing the package turns
+TF32 off (``device.float32_policy``).
 """
+
+from .device import float32_policy
+
+float32_policy()
 
 __version__ = "0.1.0"

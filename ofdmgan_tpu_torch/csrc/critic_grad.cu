@@ -41,7 +41,20 @@
 // in order and writes the gradients and metrics. Every sum is in a fixed
 // order, so the result is deterministic for a given B and card. float32 FMA
 // on CUDA cores only: no TF32, no tensor cores.
+//
+// bf16 matmul precision (the step's matmul_precision="bfloat16", the
+// instantiation BF16 = true): every operand of a conv, a transposed conv, a
+// weight-gradient sum and the dense layer is rounded to bfloat16, as the
+// autograd route computes it under ops/bf16_dots.py, and the products are
+// summed in float32 (a product of two bf16 values is exact in float32).
+// The host passes the three weight tensors rounded; the kernel rounds the
+// activations and cotangents where it stores them for the products: h0,
+// the layer-1 activations, dz2, e2, dz1, e1, c and c1, the pooled layer-2
+// activations of the score and of the Wasserstein dense gradient, the
+// penalty's pooled dense gradient and dy = 1/B. The bias gradients sum
+// unrounded values, as autograd's do.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
@@ -81,6 +94,13 @@ struct Args {
 };
 
 __device__ __forceinline__ float mask(float x, float slope) { return x > 0.0f ? 1.0f : slope; }
+
+// x rounded to the nearest bfloat16 under BF16, else x
+template <bool BF16>
+__device__ __forceinline__ float rnd(float x) {
+  if constexpr (BF16) return __bfloat162float(__float2bfloat16_rn(x));
+  return x;
+}
 
 __device__ __forceinline__ float load(const Frames& fr, int f, int t, int c) {
   return fr.p[f * fr.sb + t * fr.st + c * fr.sc];
@@ -196,6 +216,7 @@ __device__ __forceinline__ float conv1_t(const float* d, const float* w1, int p,
   return acc;
 }
 
+template <bool BF16>
 __global__ void __launch_bounds__(NT, BLOCKS_PER_SM) critic_grad_kernel(Args a) {
   __shared__ float s_w1[8 * W1S], s_b1[8], s_w2[16 * W2S], s_b2[16], s_wd[16];
   __shared__ __align__(16) float s_tile[WPB * TILE];
@@ -213,7 +234,7 @@ __global__ void __launch_bounds__(NT, BLOCKS_PER_SM) critic_grad_kernel(Args a) 
   const int t2a = l >> 4, t2b = t2a + 2, o2 = l & 15;  // layer-2 outputs l, l + 32
   const int pc = l >> 1, ic = l & 1;                   // the lane's candidate input
   const int i1 = l >> 3, h2 = l >> 4;  // its conv1.weight[o1][i1][:], conv2.weight[o2][4h2..][:]
-  const float slope = a.slope, inv_b = a.inv_b, wd = s_wd[o2];
+  const float slope = a.slope, inv_b = rnd<BF16>(a.inv_b), wd = s_wd[o2];
   float rw1[12], rw2[24];  // the lane's output channels' weights, [i][k]
 #pragma unroll
   for (int j = 0; j < 12; ++j) rw1[j] = s_w1[o1 * W1S + j];
@@ -233,12 +254,13 @@ __global__ void __launch_bounds__(NT, BLOCKS_PER_SM) critic_grad_kernel(Args a) 
     __syncwarp();  // the previous frame's reads of the tile are done
     const float cl = load(a.clean, f, pc, ic), fk = load(a.fake, f, pc, ic);
     const float ns = load(a.noisy, f, pc, ic), al = a.alpha[f];
-    sh[pc * 4 + ic] = cl;
-    sh[64 + pc * 4 + ic] = fk;
-    sh[128 + pc * 4 + ic] = al * cl + (1.0f - al) * fk;
-    sh[pc * 4 + 2 + ic] = ns;
-    sh[64 + pc * 4 + 2 + ic] = ns;
-    sh[128 + pc * 4 + 2 + ic] = ns;
+    const float nr = rnd<BF16>(ns);
+    sh[pc * 4 + ic] = rnd<BF16>(cl);
+    sh[64 + pc * 4 + ic] = rnd<BF16>(fk);
+    sh[128 + pc * 4 + ic] = rnd<BF16>(al * cl + (1.0f - al) * fk);
+    sh[pc * 4 + 2 + ic] = nr;
+    sh[64 + pc * 4 + 2 + ic] = nr;
+    sh[128 + pc * 4 + 2 + ic] = nr;
     __syncwarp();
 
     // forward, layer 1
@@ -249,8 +271,8 @@ __global__ void __launch_bounds__(NT, BLOCKS_PER_SM) critic_grad_kernel(Args a) 
       const float zb = conv1<4>(sh + 64 * r, rw1, t1b) + s_b1[o1];
       x1a[r] = za * mask(za, slope);
       x1b[r] = zb * mask(zb, slope);
-      sx1[64 * r + l] = x1a[r];
-      sx1[64 * r + 32 + l] = x1b[r];
+      sx1[64 * r + l] = rnd<BF16>(x1a[r]);
+      sx1[64 * r + 32 + l] = rnd<BF16>(x1b[r]);
     }
     __syncwarp();
 
@@ -263,22 +285,31 @@ __global__ void __launch_bounds__(NT, BLOCKS_PER_SM) critic_grad_kernel(Args a) 
       x2a[r] = za * mask(za, slope);
       x2b[r] = zb * mask(zb, slope);
     }
-    yR += warp_sum((x2a[0] + x2b[0]) * wd);
-    yF += warp_sum((x2a[1] + x2b[1]) * wd);
+    // lanes l and l ^ 16 hold the same channel at the other two positions
+    float poolR = x2a[0] + x2b[0], poolF = x2a[1] + x2b[1];
+    if constexpr (BF16) {  // the dense layer reads the pooled vector rounded
+      poolR = rnd<BF16>(poolR + __shfl_xor_sync(FULL, poolR, 16));
+      poolF = rnd<BF16>(poolF + __shfl_xor_sync(FULL, poolF, 16));
+      yR += warp_sum(l < 16 ? poolR * wd : 0.0f);
+      yF += warp_sum(l < 16 ? poolF * wd : 0.0f);
+    } else {
+      yR += warp_sum(poolR * wd);
+      yF += warp_sum(poolF * wd);
+    }
     const float m2Ia = mask(x2a[2], slope), m2Ib = mask(x2b[2], slope);
     const float dRa = -inv_b * wd * mask(x2a[0], slope), dRb = -inv_b * wd * mask(x2b[0], slope);
     const float dFa = inv_b * wd * mask(x2a[1], slope), dFb = inv_b * wd * mask(x2b[1], slope);
-    sdz2[l] = dRa;
-    sdz2[32 + l] = dRb;
-    sdz2[64 + l] = dFa;
-    sdz2[96 + l] = dFb;
-    se2[l] = m2Ia * wd;
-    se2[32 + l] = m2Ib * wd;
-    {  // lanes l and l ^ 16 hold the same channel at the other two positions
+    sdz2[l] = rnd<BF16>(dRa);
+    sdz2[32 + l] = rnd<BF16>(dRb);
+    sdz2[64 + l] = rnd<BF16>(dFa);
+    sdz2[96 + l] = rnd<BF16>(dFb);
+    se2[l] = rnd<BF16>(m2Ia * wd);
+    se2[32 + l] = rnd<BF16>(m2Ib * wd);
+    {
       float sb = (dRa + dRb) + (dFa + dFb);
-      float sw = inv_b * ((x2a[1] + x2b[1]) - (x2a[0] + x2b[0]));
       sb += __shfl_xor_sync(FULL, sb, 16);
-      sw += __shfl_xor_sync(FULL, sw, 16);
+      float sw = inv_b * (poolF - poolR);
+      if constexpr (!BF16) sw += __shfl_xor_sync(FULL, sw, 16);  // BF16: whole channels
       accV += l < 16 ? sb : sw;
     }
     __syncwarp();
@@ -293,12 +324,12 @@ __global__ void __launch_bounds__(NT, BLOCKS_PER_SM) critic_grad_kernel(Args a) 
     dz1Rb *= mask(x1b[0], slope);
     dz1Fb *= mask(x1b[1], slope);
     e1b *= mask(x1b[2], slope);
-    sdz1[l] = dz1Ra;
-    sdz1[32 + l] = dz1Rb;
-    sdz1[64 + l] = dz1Fa;
-    sdz1[96 + l] = dz1Fb;
-    se1[l] = e1a;
-    se1[32 + l] = e1b;
+    sdz1[l] = rnd<BF16>(dz1Ra);
+    sdz1[32 + l] = rnd<BF16>(dz1Rb);
+    sdz1[64 + l] = rnd<BF16>(dz1Fa);
+    sdz1[96 + l] = rnd<BF16>(dz1Fb);
+    se1[l] = rnd<BF16>(e1a);
+    se1[32 + l] = rnd<BF16>(e1b);
     {  // lanes l, l ^ 8, l ^ 16, l ^ 24 hold the same channel
       float s = (dz1Ra + dz1Rb) + (dz1Fa + dz1Fb);
       s += __shfl_xor_sync(FULL, s, 8);
@@ -311,19 +342,19 @@ __global__ void __launch_bounds__(NT, BLOCKS_PER_SM) critic_grad_kernel(Args a) 
     // per lane), n = |g|, c = 2 lambda (n - 1) / (n B) * g
     const float g = conv1_t(se1, s_w1, pc, ic);
     const float n = sqrtf(warp_sum(g * g) + 1e-12f);
-    sc[l] = (a.gp_coef * (n - 1.0f)) / n * g;
+    sc[l] = rnd<BF16>((a.gp_coef * (n - 1.0f)) / n * g);
     gpS += (n - 1.0f) * (n - 1.0f);
     __syncwarp();
 
     // c1 = (c W1) * m1 on the interpolate
-    sc1[l] = conv1<2>(sc, rw1, t1a) * mask(x1a[2], slope);
-    sc1[32 + l] = conv1<2>(sc, rw1, t1b) * mask(x1b[2], slope);
+    sc1[l] = rnd<BF16>(conv1<2>(sc, rw1, t1a) * mask(x1a[2], slope));
+    sc1[32 + l] = rnd<BF16>(conv1<2>(sc, rw1, t1b) * mask(x1b[2], slope));
     __syncwarp();
 
     {  // dense.weight += pool(c2 * m2), c2 = c1 W2
       float s = conv2(sc1, rw2, t2a) * m2Ia + conv2(sc1, rw2, t2b) * m2Ib;
       s += __shfl_xor_sync(FULL, s, 16);
-      if (l >= 16) accV += s;
+      if (l >= 16) accV += rnd<BF16>(s);
     }
 
     // conv1.weight[o1][i1][k] += sum_t dz1[t][o1] h0[2t-1+k][i1] (real, fake)
@@ -453,9 +484,10 @@ extern "C" int ofdm_critic_grad_slot_floats() { return SLOT; }
 
 extern "C" int ofdm_critic_grad_out_floats() { return N_OUT; }
 
-// Launches both stages on `stream`.
+// Launches both stages on `stream`; `bf16` selects bf16 matmul precision
+// (the weights `w1`, `w2`, `wd` then arrive rounded to bfloat16).
 extern "C" int ofdm_critic_grad_launch(
-    int B, int nblocks, float slope, float gp_weight,
+    int B, int nblocks, float slope, float gp_weight, int bf16,
     const void* clean, long long c_sb, long long c_st, long long c_sc,
     const void* fake, long long f_sb, long long f_st, long long f_sc,
     const void* noisy, long long n_sb, long long n_st, long long n_sc,
@@ -482,7 +514,10 @@ extern "C" int ofdm_critic_grad_launch(
   a.slots = (float*)scratch;
   a.out = (float*)out;
   cudaStream_t s = (cudaStream_t)stream;
-  critic_grad_kernel<<<nblocks, NT, 0, s>>>(a);
+  if (bf16)
+    critic_grad_kernel<true><<<nblocks, NT, 0, s>>>(a);
+  else
+    critic_grad_kernel<false><<<nblocks, NT, 0, s>>>(a);
   const cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   critic_grad_sum_kernel<<<(SLOT + 31) / 32, SUM_WARPS * 32, 0, s>>>(a);

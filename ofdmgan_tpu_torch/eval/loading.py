@@ -33,9 +33,11 @@ def check_family(tree: Dict[str, Any], model: str) -> None:
 
 def build_generator(tree: Optional[Dict[str, Any]], model: str, frame_length: int,
                     residual: bool = False, qat: bool = False, rtl_faithful: bool = False,
-                    quant_bits: Optional[Sequence[int]] = None, seed: int = 0) -> torch.nn.Module:
+                    quant_bits: Optional[Sequence[int]] = None, seed: int = 0,
+                    act_dtype=None) -> torch.nn.Module:
     """The ``model`` generator with ``tree``'s weights (with ``tree`` None,
-    initialised from ``seed``), on the CPU, in eval mode."""
+    initialised from ``seed``), on the CPU, in eval mode; ``act_dtype`` is
+    the mini generator's activation storage format."""
     if tree is not None:
         check_family(tree, model)
     with torch.random.fork_rng(devices=[]):
@@ -50,7 +52,8 @@ def build_generator(tree: Optional[Dict[str, Any]], model: str, frame_length: in
             gen = FullUNetGenerator(frame_length=frame_length, levels=levels,
                                     base_channels=base, weight_bits=wb, act_bits=ab)
         else:
-            gen = MiniGenerator(input_residual=residual, qat=qat, rtl_faithful=rtl_faithful)
+            gen = MiniGenerator(input_residual=residual, qat=qat, rtl_faithful=rtl_faithful,
+                                act_dtype=act_dtype)
     if tree is not None:
         gen.load_state_dict(from_jax_params(tree))
     return gen.eval()

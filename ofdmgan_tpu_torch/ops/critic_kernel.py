@@ -22,6 +22,14 @@ with ``h0 = concat(candidate, condition).reshape(B, 64)`` (the leaky masks
 have zero second derivative almost everywhere, as autograd of autograd
 assumes).
 
+``bf16=True`` computes the same gradient under bf16 matmul precision, as
+the step's autograd route does under ``ops/bf16_dots.py``: every operand of
+a product (the weights, h0, the activations x1, the pooled layer-2
+activations, dy, dz2, e2, dz1, e1, c, c1 and the penalty's pooled
+cotangent) is rounded to bf16 and the products are summed in float32; the
+bias gradients sum unrounded values. The score is then the dense layer of
+the rounded pooled vector, ``R(pool(x2)) . R(w)``, as in the module.
+
 A CUDA tensor goes to the kernel, which walks only the conv taps and writes
 the 521 parameter gradients and the five metrics in one call (a per-block
 stage and a second stage that sums the blocks, launched together). A CPU
@@ -41,6 +49,7 @@ import torch
 from torch import nn
 
 from . import build
+from .bf16_dots import round_bf16
 from .dense_conv import conv1d_dense_matrix
 
 IN, PO = 64, 16  # h0 width, pooled width
@@ -52,15 +61,21 @@ METRICS = ("d_loss", "wasserstein_distance", "gradient_penalty", "d_real_mean", 
 launches = 0  # kernel launches since the caller last set it to 0
 
 
-def critic_dense_mats(critic: nn.Module) -> Dict[str, torch.Tensor]:
-    """Critic parameters -> dense layer matrices and vectors (no grad)."""
+def _same(t: torch.Tensor) -> torch.Tensor:
+    return t
+
+
+def critic_dense_mats(critic: nn.Module, bf16: bool = False) -> Dict[str, torch.Tensor]:
+    """Critic parameters -> dense layer matrices and vectors (no grad), from
+    bf16-rounded weights with ``bf16``."""
     if (tuple(critic.conv1.weight.shape), tuple(critic.conv2.weight.shape)) != ((8, 4, 3), (16, 8, 3)):
         raise ValueError("the critic-gradient kernel covers the mini 16-sample critic")
+    r = round_bf16 if bf16 else _same
     with torch.no_grad():
-        w = critic.dense.weight[0]
+        w = r(critic.dense.weight[0])
         return {
-            "a1": conv1d_dense_matrix(critic.conv1.weight, 16, 2, 1).contiguous(),
-            "a2": conv1d_dense_matrix(critic.conv2.weight, 8, 2, 1).contiguous(),
+            "a1": conv1d_dense_matrix(r(critic.conv1.weight), 16, 2, 1).contiguous(),
+            "a2": conv1d_dense_matrix(r(critic.conv2.weight), 8, 2, 1).contiguous(),
             "b1": critic.conv1.bias.repeat(8).contiguous(),
             "b2": critic.conv2.bias.repeat(4).contiguous(),
             "q2": w.repeat(4).contiguous(),   # q2[t*16 + c] = w[c]: pool then dense
@@ -74,44 +89,51 @@ def pack_h0(candidate: torch.Tensor, condition: torch.Tensor) -> torch.Tensor:
     return torch.cat([candidate, condition], dim=-1).reshape(candidate.shape[0], -1)
 
 
-def critic_grad_plain(h0_real, h0_fake, eps, mats, gp_weight: float, slope: float = 0.2):
+def critic_grad_plain(h0_real, h0_fake, eps, mats, gp_weight: float, slope: float = 0.2,
+                      bf16: bool = False):
     """The kernel's sums in PyTorch: ``gA1``, ``gA2`` ``[64, 64]``, ``gb1``,
     ``gb2`` ``[64]``, ``gw`` ``[16]`` and ``sums`` ``[3]`` (sum of y_real and
-    y_fake without the dense bias, sum of (n - 1)^2)."""
+    y_fake without the dense bias, sum of (n - 1)^2). With ``bf16`` the
+    operands of every product are rounded to bf16 (``mats`` from
+    ``critic_dense_mats(critic, bf16=True)``)."""
+    r = round_bf16 if bf16 else _same
+    pool = lambda x: x.reshape(x.shape[0], 4, PO).sum(1)  # noqa: E731
     b = h0_real.shape[0]
     a1, a2, q2 = mats["a1"], mats["a2"], mats["q2"]
     e = eps[:, None]
-    h = torch.cat([h0_real, h0_fake, e * h0_real + (1.0 - e) * h0_fake])
+    h = r(torch.cat([h0_real, h0_fake, e * h0_real + (1.0 - e) * h0_fake]))
     z1 = h @ a1 + mats["b1"]
     m1 = torch.where(z1 > 0, 1.0, slope)
-    x1 = z1 * m1
+    x1 = r(z1 * m1)
     z2 = x1 @ a2 + mats["b2"]
     m2 = torch.where(z2 > 0, 1.0, slope)
     x2 = z2 * m2
 
     inv_b = 1.0 / b
-    dy = torch.cat([torch.full((b, 1), -inv_b, device=h.device),
-                    torch.full((b, 1), inv_b, device=h.device)])
+    dy_b = float(round_bf16(torch.tensor(inv_b))) if bf16 else inv_b
+    dy = torch.cat([torch.full((b, 1), -dy_b, device=h.device),
+                    torch.full((b, 1), dy_b, device=h.device)])
     dz2 = dy * q2 * m2[:2 * b]
-    dz1 = (dz2 @ a2.T) * m1[:2 * b]
-    ga2 = x1[:2 * b].T @ dz2
-    ga1 = h[:2 * b].T @ dz1
-    gw = (dy * x2[:2 * b].reshape(2 * b, 4, PO).sum(1)).sum(0)
+    dz1 = (r(dz2) @ a2.T) * m1[:2 * b]
+    ga2 = x1[:2 * b].T @ r(dz2)
+    ga1 = h[:2 * b].T @ r(dz1)
+    pooled = r(pool(x2[:2 * b]))
+    gw = (dy * pooled).sum(0)
 
     m1i, m2i = m1[2 * b:], m2[2 * b:]
-    e2 = m2i * q2
-    e1 = m1i * (e2 @ a2.T)
+    e2 = r(m2i * q2)
+    e1 = r(m1i * (e2 @ a2.T))
     g = e1 @ a1.T
     gc = torch.where(torch.arange(IN, device=h.device) % 4 < 2, g, 0.0)
     n = torch.sqrt((gc * gc).sum(1, keepdim=True) + 1e-12)
-    c = (2.0 * gp_weight * inv_b * (n - 1.0) / n) * gc
-    c1 = (c @ a1) * m1i
+    c = r((2.0 * gp_weight * inv_b * (n - 1.0) / n) * gc)
+    c1 = r((c @ a1) * m1i)
     c2 = c1 @ a2
     ga1 = ga1 + c.T @ e1
     ga2 = ga2 + c1.T @ e2
-    gw = gw + (c2 * m2i).reshape(b, 4, PO).sum(1).sum(0)
+    gw = gw + r(pool(c2 * m2i)).sum(0)
 
-    y = (x2[:2 * b] * q2).sum(1)
+    y = pooled @ q2[:PO] if bf16 else (x2[:2 * b] * q2).sum(1)
     sums = torch.stack([y[:b].sum(), y[b:].sum(), ((n - 1.0) ** 2).sum()])
     return {"gA1": ga1, "gA2": ga2, "gb1": dz1.sum(0), "gb2": dz2.sum(0), "gw": gw,
             "sums": sums}
@@ -121,7 +143,7 @@ def critic_grad_plain(h0_real, h0_fake, eps, mats, gp_weight: float, slope: floa
 def _library():
     lib = build.load("critic_grad")
     i, ll, f, ptr = ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p
-    lib.ofdm_critic_grad_launch.argtypes = [i, i, f, f] + [ptr, ll, ll, ll] * 3 + [ptr] * 10
+    lib.ofdm_critic_grad_launch.argtypes = [i, i, f, f, i] + [ptr, ll, ll, ll] * 3 + [ptr] * 10
     lib.ofdm_critic_grad_launch.restype = i
     for name in ("ofdm_critic_grad_slot_floats", "ofdm_critic_grad_out_floats"):
         getattr(lib, name).argtypes = []
@@ -159,12 +181,14 @@ def _split(out: torch.Tensor):
     return grads, {m: out[off + i] for i, m in enumerate(METRICS)}
 
 
-def prepare(critic, clean, fake, noisy, alpha, gp_weight: float, slope: float = 0.2):
+def prepare(critic, clean, fake, noisy, alpha, gp_weight: float, slope: float = 0.2,
+            bf16: bool = False):
     """Check the inputs and allocate the buffers: ``(launcher, its arguments,
-    output buffer, scratch buffer)``. ``launcher(*args)`` launches the kernel
-    (both stages) once and returns a CUDA error code; ``critic_grad`` does
-    this and counts it, ``chip_smoke.py`` repeats it to time the kernel alone
-    at large batches."""
+    output buffer, buffers the launches read)``. ``launcher(*args)`` launches
+    the kernel (both stages) once and returns a CUDA error code;
+    ``critic_grad`` does this and counts it, ``chip_smoke.py`` repeats it to
+    time the kernel alone at large batches. With ``bf16`` the weights are
+    passed rounded to bf16."""
     check_inputs(critic, clean, fake, noisy)
     b, dev = clean.shape[0], clean.device
     for name, x in (("clean", clean), ("fake", fake), ("noisy", noisy)):
@@ -182,17 +206,20 @@ def prepare(critic, clean, fake, noisy, alpha, gp_weight: float, slope: float = 
     scratch = torch.empty(nblocks * lib.ofdm_critic_grad_slot_floats(),
                           dtype=torch.float32, device=dev)
     out = torch.empty(lib.ofdm_critic_grad_out_floats(), dtype=torch.float32, device=dev)
-    args = (b, nblocks, slope, gp_weight,
+    if bf16:
+        with torch.no_grad():
+            params = {n: round_bf16(p) if n.endswith("weight") else p for n, p in params.items()}
+    args = (b, nblocks, slope, gp_weight, int(bf16),
             clean.data_ptr(), *clean.stride(), fake.data_ptr(), *fake.stride(),
             noisy.data_ptr(), *noisy.stride(), alpha.data_ptr(),
             *(params[name].data_ptr() for name, _ in PARAM_SHAPES),
             scratch.data_ptr(), out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    return lib.ofdm_critic_grad_launch, args, out, scratch
+    return lib.ofdm_critic_grad_launch, args, out, (scratch, params)
 
 
-def _launch(critic, clean, fake, noisy, alpha, gp_weight: float, slope: float):
+def _launch(critic, clean, fake, noisy, alpha, gp_weight: float, slope: float, bf16: bool):
     global launches
-    fn, args, out, _scratch = prepare(critic, clean, fake, noisy, alpha, gp_weight, slope)
+    fn, args, out, _keep = prepare(critic, clean, fake, noisy, alpha, gp_weight, slope, bf16)
     err = fn(*args)
     if err != 0:
         raise RuntimeError(f"critic-gradient kernel launch failed: CUDA error {err}")
@@ -221,13 +248,13 @@ def dense_grads_to_params(critic: nn.Module, dense: Dict[str, torch.Tensor]) -> 
 
 def critic_grad_packed(critic: nn.Module, clean: torch.Tensor, fake: torch.Tensor,
                        noisy: torch.Tensor, alpha: torch.Tensor, gp_weight: float,
-                       slope: float = 0.2):
+                       slope: float = 0.2, bf16: bool = False):
     """The kernel's plain version: the packed rows through the dense sums of
     ``critic_grad_plain``, mapped back to the parameters, and the metrics."""
     check_inputs(critic, clean, fake, noisy)
-    mats = critic_dense_mats(critic)
+    mats = critic_dense_mats(critic, bf16)
     dense = critic_grad_plain(pack_h0(clean, noisy), pack_h0(fake, noisy), alpha, mats,
-                              gp_weight, slope)
+                              gp_weight, slope, bf16)
     inv_b = 1.0 / clean.shape[0]
     d_real = dense["sums"][0] * inv_b + mats["bd"]
     d_fake = dense["sums"][1] * inv_b + mats["bd"]
@@ -240,12 +267,12 @@ def critic_grad_packed(critic: nn.Module, clean: torch.Tensor, fake: torch.Tenso
 
 def critic_grad(critic: nn.Module, clean: torch.Tensor, fake: torch.Tensor,
                 noisy: torch.Tensor, alpha: torch.Tensor, gp_weight: float,
-                slope: float = 0.2
+                slope: float = 0.2, bf16: bool = False
                 ) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
     """(gradient per critic parameter, metrics) of the critic loss, with the
-    metrics of ``training/wgan_gp.critic_loss_fn``: the kernel for CUDA
-    tensors (one call, the results are views of its output), the plain
-    version for CPU ones."""
+    metrics of ``training/wgan_gp.critic_loss_fn``, at float32 or (``bf16``)
+    bf16 matmul precision: the kernel for CUDA tensors (one call, the
+    results are views of its output), the plain version for CPU ones."""
     if clean.device.type == "cuda":
-        return _launch(critic, clean, fake, noisy, alpha, gp_weight, slope)
-    return critic_grad_packed(critic, clean, fake, noisy, alpha, gp_weight, slope)
+        return _launch(critic, clean, fake, noisy, alpha, gp_weight, slope, bf16)
+    return critic_grad_packed(critic, clean, fake, noisy, alpha, gp_weight, slope, bf16)

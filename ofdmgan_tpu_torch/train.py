@@ -8,7 +8,9 @@ fused decoder, at float32 too), the step's numerics (``--act_dtype``,
 (``--frame_length``), the nonlinear impairments (``--nonlinear``), image
 data (``--image_dir``, ``--image_chunks``), resume (``--resume``), warm start
 (``--init_from``: a checkpoint directory, or a generator ``.npz``), an EMA
-of the generator (``--ema``) and a profiler trace (``--profile N``);
+of the generator (``--ema``), a profiler trace (``--profile N``),
+recomputed activations (``--remat``), a NaN trap (``--debug_nans``) and
+the synthetic data source, the default (``--synthetic``);
 quantization-aware training (``--qat``; ``--rtl_qat``, the RTL's own
 operations under QAT, with ``--residual`` the RTL-residual datapath;
 ``--quant_bits W A`` for the full U-Net) and the FPGA export that ends
@@ -81,6 +83,14 @@ def build_parser() -> argparse.ArgumentParser:
                         "nets) or a generator .npz (the generator alone)")
     p.add_argument("--ema", type=float, default=0.0, metavar="DECAY",
                    help="keep an EMA of the generator with this decay per step (0: off)")
+    p.add_argument("--synthetic", action="store_true",
+                   help="synthetic OFDM frames, the default data source unless --image_dir")
+    p.add_argument("--remat", action="store_true",
+                   help="recompute the model applies' activations in the backward instead of "
+                        "keeping them (torch.utils.checkpoint; the same function)")
+    p.add_argument("--debug_nans", action="store_true",
+                   help="autograd anomaly detection, and stop at the first step whose "
+                        "metrics are not finite")
     p.add_argument("--profile", type=int, default=0, metavar="N",
                    help="trace N outer steps with torch.profiler before training")
     p.add_argument("--skip_export", action="store_true",
@@ -174,7 +184,8 @@ def main(argv=None):
                       image_dir=args.image_dir, image_chunks=args.image_chunks,
                       generator=generator, discriminator=critic,
                       fused_decoder=args.fused_decoder, act_dtype=args.act_dtype,
-                      matmul_precision=args.matmul_precision)
+                      matmul_precision=args.matmul_precision, remat=args.remat,
+                      debug_nans=args.debug_nans)
     trainer.nan_policy = args.nan_policy
     print(f"Generator parameters: {count_parameters(trainer.generator):,}")
     print(f"Discriminator parameters: {count_parameters(trainer.critic):,}")

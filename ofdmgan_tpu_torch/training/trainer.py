@@ -32,7 +32,11 @@ quantization and the RTL's operations, and the full U-Net with
 Checkpoints, resume, warm start, the EMA and validation work on any family,
 through the module's own forward. ``fused_decoder`` trains the full U-Net
 through the fused k = 2-pair decoder (``models/unet_infer.py``), and
-``act_dtype`` and ``matmul_precision`` are the step's (``wgan_gp.py``).
+``act_dtype``, ``matmul_precision`` and ``remat`` are the step's
+(``wgan_gp.py``). ``debug_nans`` (the reference's ``jax_debug_nans``) runs
+the steps under autograd's anomaly detection, which names the backward op
+that first made a NaN, and raises ``FloatingPointError`` on the first step
+whose metrics are not finite.
 """
 
 from __future__ import annotations
@@ -108,7 +112,8 @@ class Trainer:
                  samples_per_image: int = 10, generator: Optional[torch.nn.Module] = None,
                  discriminator: Optional[torch.nn.Module] = None,
                  fused_decoder: bool = False, act_dtype=None,
-                 matmul_precision: str = "float32"):
+                 matmul_precision: str = "float32", remat: bool = False,
+                 debug_nans: bool = False):
         """Runs on the GPU unless ``device`` says otherwise (``"cpu"``).
         ``ema_decay > 0`` keeps an EMA of the generator, updated after every
         outer step; ``image_dir`` trains on image-derived frames
@@ -156,7 +161,8 @@ class Trainer:
         self.step = TrainStep(self.generator, self.critic, None, None, self.dg_cfg,
                               self.loss_cfg, self.batch_size, batch_fn=batch_fn,
                               gen_forward=gen_forward, act_dtype=act_dtype,
-                              matmul_precision=matmul_precision)
+                              matmul_precision=matmul_precision, remat=remat)
+        self.debug_nans = debug_nans
         self._fresh_optimizers()
         self._eval = make_eval_step(self.generator, self.dg_cfg, self.batch_size, batch_fn)
         self.rng = torch.Generator(device=self.device)
@@ -221,8 +227,16 @@ class Trainer:
     def train_epoch(self) -> Dict[str, float]:
         """Run one epoch; the last step's metrics, read once at the end."""
         metrics: Dict[str, torch.Tensor] = {}
-        for _ in range(self.steps_per_epoch):
-            metrics = self.step(self.rng)
+        for i in range(self.steps_per_epoch):
+            if self.debug_nans:
+                with torch.autograd.detect_anomaly():
+                    metrics = self.step(self.rng)
+                bad = [k for k, v in metrics.items() if not bool(torch.isfinite(v))]
+                if bad:
+                    raise FloatingPointError(f"non-finite {bad} at step "
+                                             f"{self.global_step + i}: {metrics}")
+            else:
+                metrics = self.step(self.rng)
             if self.ema_generator is not None:
                 self.update_ema()
         self.global_step += self.steps_per_epoch

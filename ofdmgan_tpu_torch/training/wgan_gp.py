@@ -42,16 +42,34 @@ Three settings follow the reference's ``build_train_step``:
   ``wgan_gp.py:317-326``; the mini pair stores its activations in it too);
 * ``matmul_precision`` (``MATMUL_PRECISIONS``) is scoped to the step
   (``matmul_precision``): ``float32``, the default, keeps TF32 off for
-  matrix products and cuDNN convolutions; ``tensorfloat32`` turns both on;
-  ``bfloat16`` runs the step under ``torch.autocast`` with bf16 operands
-  (products accumulate in float32 but return bf16, where the reference's
-  return float32: held to the reference's bf16 tolerance);
-  ``bf16_tf32gp`` and ``bf16_f32gp`` keep the gradient-penalty chain out of
-  the autocast, at TF32 or float32 (reference ``wgan_gp.py:130-134,
-  260-266``). The flags are restored when the step returns.
+  matrix products and cuDNN convolutions; ``tensorfloat32`` turns both on,
+  which on Hopper is TF32 (10 mantissa bits), not the TPU's bf16x3 that the
+  reference's mode means there; ``bfloat16`` rounds the operands of every
+  conv and linear of the step, and of their derivatives, to bf16 and
+  computes in float32 with TF32 off (``ops/bf16_dots.py``): the TPU's
+  one-pass bf16 with float32 accumulation, as the reference's
+  ``jax.default_matmul_precision("bfloat16")`` computes there. Outputs,
+  bias adds, activations and the score stay float32. ``bf16_tf32gp`` and
+  ``bf16_f32gp`` run the gradient-penalty chain (its forward, the nested
+  gradient and their parameter gradients) on unrounded operands, at TF32
+  or float32 (reference ``wgan_gp.py:119-133, 213-218``). The flags are
+  restored when the step returns. The reference's datagen is a DFT matmul,
+  which its bf16 mode rounds too on a TPU; the port's datagen (the FFT or
+  the datagen kernel) stays float32.
 
-The critic kernel computes the float32 mini critic, so its route is
-``kernel`` only with no ``act_dtype`` and ``float32`` precision.
+``remat`` recomputes the model applies in the backward instead of keeping
+their activations (reference ``wgan_gp.py:220-224``): the generator's
+training forward and every critic apply of the step, the penalty's too, run
+under ``torch.utils.checkpoint`` (non-reentrant, so the penalty's double
+backward goes through it). It computes the same function. With the critic
+kernel, the generator's applies and the generator step's critic apply are
+the ones recomputed, as there.
+
+The critic kernel computes the mini critic at ``float32`` or ``bfloat16``
+precision, the latter with the rounding of this step's autograd route (the
+reference's Pallas critic takes ``bfloat16`` too, and refuses the mixed
+modes), so its route is ``kernel`` only with no ``act_dtype`` and one of
+those two precisions.
 """
 
 from __future__ import annotations
@@ -63,10 +81,11 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..models.critic import compute_gradient_penalty
 from ..models.generator import FP8_DTYPES, as_dtype, storage_dtype
-from ..ops import critic_kernel, datagen_kernel
+from ..ops import bf16_dots, critic_kernel, datagen_kernel
 from ..signal.datagen import DatagenConfig, synthetic_batch
 from .schedules import AdamStepLR
 
@@ -87,34 +106,35 @@ class LossConfig:
 
 
 @contextlib.contextmanager
-def matmul_precision(mode: str, device_type: str):
-    """The step's numerics ``mode`` (``MATMUL_PRECISIONS``) on ``device_type``
-    while the block runs; the TF32 flags are restored after it."""
+def matmul_precision(mode: str):
+    """The step's numerics ``mode`` (``MATMUL_PRECISIONS``) while the block
+    runs; the TF32 flags are restored after it."""
     if mode not in MATMUL_PRECISIONS:
         raise ValueError(f"matmul_precision must be one of {MATMUL_PRECISIONS}, not {mode!r}")
     flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     tf32 = mode in ("tensorfloat32", "bf16_tf32gp")
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = tf32
     try:
-        with torch.autocast(device_type, dtype=torch.bfloat16, enabled=mode.startswith("bf")):
+        with bf16_dots.bf16_operands(mode.startswith("bf")):
             yield
     finally:
         torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = flags
 
 
-def gp_precision(mode: str, device_type: str):
-    """The gradient-penalty chain's context inside the step: out of the
-    autocast in the mixed modes (its TF32 flags are the step's)."""
+def gp_precision(mode: str):
+    """The gradient-penalty chain's context inside the step: unrounded
+    operands in the mixed modes (its TF32 flags are the step's)."""
     if mode in ("bf16_tf32gp", "bf16_f32gp"):
-        return torch.autocast(device_type, enabled=False)
+        return bf16_dots.full_operands()
     return contextlib.nullcontext()
 
 
-def critic_loss_fn(critic: nn.Module, generator: Callable, batch, alpha: torch.Tensor,
+def critic_loss_fn(critic: Callable, generator: Callable, batch, alpha: torch.Tensor,
                    cfg: LossConfig, gp_context=contextlib.nullcontext):
     """L_D and its metrics; ``alpha`` ``[B]`` are the penalty's uniforms.
-    ``generator`` is the module or any training forward ``noisy -> fake``;
-    the penalty runs inside ``gp_context()``."""
+    ``generator`` is the module or any training forward ``noisy -> fake``,
+    ``critic`` the module or any apply of it; the penalty runs inside
+    ``gp_context()``."""
     noisy, clean = batch["noisy"], batch["clean"]
     with torch.no_grad():
         # stored in the batch's format, as the reference does (wgan_gp.py:108)
@@ -132,7 +152,7 @@ def critic_loss_fn(critic: nn.Module, generator: Callable, batch, alpha: torch.T
     return loss, {k: v.detach() for k, v in aux.items()}
 
 
-def generator_loss_fn(generator: Callable, critic: nn.Module, batch, cfg: LossConfig):
+def generator_loss_fn(generator: Callable, critic: Callable, batch, cfg: LossConfig):
     """L_G and its metrics; ``n_critic == 0`` skips the critic entirely."""
     noisy, clean = batch["noisy"], batch["clean"]
     fake = generator(noisy)
@@ -153,18 +173,31 @@ def _apply_grads(module: nn.Module, opt: AdamStepLR, grads) -> None:
     opt.step()
 
 
+def _recomputed(fn: Callable) -> Callable:
+    """``fn`` whose activations are recomputed in the backward, with the
+    operand rounding of its first run."""
+    def apply(*args):
+        rounded = bf16_dots.rounding()
+
+        def run(*a):
+            with bf16_dots.operands(rounded):
+                return fn(*a)
+        return checkpoint(run, *args, use_reentrant=False)
+    return apply
+
+
 class TrainStep:
     """One outer step on ``generator``/``critic`` in place; built by
     ``build_train_step``. ``batch_fn(rng, n)`` replaces the synthetic datagen
-    (reference ``wgan_gp.py:279-280``); ``gen_forward``, ``act_dtype`` and
-    ``matmul_precision`` as in the module's docstring."""
+    (reference ``wgan_gp.py:279-280``); ``gen_forward``, ``act_dtype``,
+    ``matmul_precision`` and ``remat`` as in the module's docstring."""
 
     def __init__(self, generator: nn.Module, critic: nn.Module, opt_g: AdamStepLR,
                  opt_d: AdamStepLR, dg_cfg: DatagenConfig, loss_cfg: LossConfig,
                  batch_size: int, reference: bool = False,
                  batch_fn: Optional[Callable[[torch.Generator, int], dict]] = None,
                  gen_forward: Optional[Callable[[nn.Module, torch.Tensor], torch.Tensor]] = None,
-                 act_dtype=None, matmul_precision: str = "float32"):
+                 act_dtype=None, matmul_precision: str = "float32", remat: bool = False):
         if loss_cfg.n_critic == 0 and loss_cfg.adv_weight != 0.0:
             raise ValueError("n_critic=0 (the supervised path) requires adv_weight=0: "
                              "with no critic updates an adversarial generator term "
@@ -175,6 +208,7 @@ class TrainStep:
         self.gen_forward = gen_forward
         self.act_dtype = storage_dtype(act_dtype)
         self.matmul_precision = matmul_precision
+        self.remat = remat
         self.opt_g, self.opt_d = opt_g, opt_d
         self.dg_cfg, self.loss_cfg = dg_cfg, loss_cfg
         self.batch_size = batch_size
@@ -192,7 +226,7 @@ class TrainStep:
         self._reference = bool(value)
         kernel_data = not value and self.batch_fn is None and datagen_kernel.covers(self.dg_cfg)
         kernel_critic = (not value and self.act_dtype is None
-                         and self.matmul_precision == "float32"
+                         and self.matmul_precision in ("float32", "bfloat16")
                          and critic_kernel.covers(self.critic, self.dg_cfg.frame_length))
         self.datagen_route = "kernel" if kernel_data else "plain"
         self.critic_route = "kernel" if kernel_critic else "plain"
@@ -217,8 +251,14 @@ class TrainStep:
     def forward(self, noisy: torch.Tensor) -> torch.Tensor:
         """The generator's training forward."""
         if self.gen_forward is None:
-            return self.generator(noisy)
-        return self.gen_forward(self.generator, noisy)
+            fwd = self.generator
+        else:
+            fwd = functools.partial(self.gen_forward, self.generator)
+        return _recomputed(fwd)(noisy) if self.remat else fwd(noisy)
+
+    def critic_apply(self) -> Callable:
+        """The critic as the step applies it."""
+        return _recomputed(self.critic) if self.remat else self.critic
 
     def critic_update(self, batch, alpha: torch.Tensor) -> Dict[str, torch.Tensor]:
         if self.critic_route == "kernel":
@@ -227,13 +267,12 @@ class TrainStep:
                 fake = self.forward(noisy)
             grads, aux = critic_kernel.critic_grad(
                 self.critic, clean, fake, noisy, alpha, self.loss_cfg.gp_weight,
-                self.critic.leaky_slope)
+                self.critic.leaky_slope, bf16=self.matmul_precision == "bfloat16")
             grads = [grads[name] for name, _ in self.critic.named_parameters()]
         else:
-            gp_context = functools.partial(gp_precision, self.matmul_precision,
-                                           batch["noisy"].device.type)
-            loss, aux = critic_loss_fn(self.critic, self.forward, batch, alpha, self.loss_cfg,
-                                       gp_context)
+            gp_context = functools.partial(gp_precision, self.matmul_precision)
+            loss, aux = critic_loss_fn(self.critic_apply(), self.forward, batch, alpha,
+                                       self.loss_cfg, gp_context)
             grads = torch.autograd.grad(loss, list(self.critic.parameters()))
         _apply_grads(self.critic, self.opt_d, grads)
         return aux
@@ -253,10 +292,11 @@ class TrainStep:
                       "clean": batch0["clean"].to(self.act_dtype)}
         zero = torch.zeros((), device=device)
         d_aux = {k: zero for k in METRIC_KEYS[:5]}
-        with matmul_precision(self.matmul_precision, device.type):
+        with matmul_precision(self.matmul_precision):
             for i, alpha in enumerate(alphas):
                 d_aux = self.critic_update(critic_batches[i] if critic_batches else batch0, alpha)
-            g_loss, g_aux = generator_loss_fn(self.forward, self.critic, batch0, self.loss_cfg)
+            g_loss, g_aux = generator_loss_fn(self.forward, self.critic_apply(), batch0,
+                                              self.loss_cfg)
             _apply_grads(self.generator, self.opt_g,
                          torch.autograd.grad(g_loss, list(self.generator.parameters())))
         return {**d_aux, **g_aux}

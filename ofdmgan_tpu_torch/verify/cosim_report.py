@@ -10,8 +10,8 @@ with the JAX package's structure. Test sets mirror the reference
 testbenches:
 
 * generator: zero / DC / impulse / sine / ramp / random patterns
-  (tb_generator_mini.v:214-430) and five OFDM channel scenarios
-  (tb_cwgan_gp_full.v:447-586);
+  (tb_generator_mini.v:214-430) and the five OFDM channel scenarios of
+  ``viz/signal_viz.py`` (tb_cwgan_gp_full.v:447-586);
 * discriminator: zero / matching / mismatched / random / DC
   (tb_discriminator_mini.v:179-255);
 * system: generator -> critic(fake, cond) and critic(clean, cond), the
@@ -34,6 +34,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..viz.signal_viz import research_scenarios
 
 QPSK_EVM_LIMIT_PERCENT = 17.5  # acceptance criterion (tb_generator_mini.v:719-720)
 
@@ -52,67 +53,15 @@ def _gen_patterns(frame: int = 16) -> Dict[str, np.ndarray]:
     }
 
 
-class _ScenarioSignals:
-    """Clean 16-QAM OFDM frames and their degradations, as complex arrays:
-    the draws and arithmetic of ``OFDMSignalGenerator``
-    (``ofdmgan_tpu/viz/signal_viz.py:44-92``; reference
-    ofdm_signal_viz.py:61-171), in the same order on one ``default_rng``."""
-
-    def __init__(self, n_subcarriers: int = 8, cp_length: int = 2, frame_length: int = 16,
-                 seed: int = 0):
-        self.n, self.cp, self.frame_length = n_subcarriers, cp_length, frame_length
-        self.rng = np.random.default_rng(seed)
-
-    def clean_frame(self) -> np.ndarray:
-        levels = np.array([-3, -1, 1, 3]) / np.sqrt(10)
-        sym = self.rng.choice(levels, self.n) + 1j * self.rng.choice(levels, self.n)
-        time = np.fft.ifft(sym) * self.n
-        sig = np.resize(np.concatenate([time[-self.cp:], time]), self.frame_length)
-        return sig / (np.max(np.abs(sig)) + 1e-12)
-
-    def add_awgn(self, c: np.ndarray, noise_percent: float) -> np.ndarray:
-        amp = noise_percent / 100.0 * np.max(np.abs(c))
-        n = len(c)
-        return c + amp * (self.rng.standard_normal(n)
-                          + 1j * self.rng.standard_normal(n)) / np.sqrt(2)
-
-    @staticmethod
-    def add_deep_fade(c: np.ndarray, fade_percent: float, start: int = 4,
-                      stop: int = 8) -> np.ndarray:
-        c = c.copy()
-        c[start:stop] *= 1.0 - fade_percent / 100.0
-        return c
-
-    def add_burst_interference(self, c: np.ndarray, burst_amp: float = 0.8, start: int = 8,
-                               stop: int = 12) -> np.ndarray:
-        c = c.copy()
-        rnd = (self.rng.standard_normal(stop - start)
-               + 1j * self.rng.standard_normal(stop - start))
-        c[start:stop] += burst_amp * rnd / np.sqrt(2)
-        return c
-
-    @staticmethod
-    def add_frequency_selective_fade(c: np.ndarray, depth: float = 0.5) -> np.ndarray:
-        spec = np.fft.fft(c)
-        taper = 1.0 - depth * np.abs(np.sin(np.linspace(0, np.pi, len(spec))))
-        return np.fft.ifft(spec * taper)
-
-
-def _iq(c: np.ndarray) -> np.ndarray:
-    return np.stack([c.real, c.imag], -1).astype(np.float32)
+COSIM_SCENARIOS = {"awgn_30": "awgn_30pct", "deep_fade_60": "deep_fade_60pct",
+                   "burst": "burst_interference", "freq_selective": "freq_selective",
+                   "worst_case": "worst_case"}   # the scenarios' names in the report
 
 
 def _ofdm_scenarios(frame: int = 16) -> Dict[str, Dict[str, np.ndarray]]:
-    g = _ScenarioSignals(frame_length=frame, seed=3)
-    clean = g.clean_frame()
-    scen = {
-        "awgn_30pct": g.add_awgn(clean, 30.0),
-        "deep_fade_60pct": g.add_deep_fade(g.add_awgn(clean, 10.0), 60.0),
-        "burst_interference": g.add_burst_interference(g.add_awgn(clean, 10.0)),
-        "freq_selective": g.add_frequency_selective_fade(g.add_awgn(clean, 10.0)),
-        "worst_case": g.add_deep_fade(g.add_awgn(clean, 50.0), 80.0),
-    }
-    return {k: {"degraded": _iq(s), "clean": _iq(clean)} for k, s in scen.items()}
+    """The research scenarios (``viz/signal_viz.py``) from seed 3, as I/Q."""
+    clean, scenarios = research_scenarios(seed=3, frame_length=frame)
+    return {COSIM_SCENARIOS[k]: {"degraded": s.iq, "clean": clean.iq} for k, s in scenarios}
 
 
 def run_cosim_verification(

@@ -36,6 +36,7 @@ from ofdmgan_tpu_torch import train as train_cli
 from ofdmgan_tpu_torch.models import MiniDiscriminator, MiniGenerator
 from ofdmgan_tpu_torch.models.full_unet import FullDiscriminator, FullUNetGenerator
 from ofdmgan_tpu_torch.models.unet_infer import make_unet_infer_apply
+from ofdmgan_tpu_torch.ops.bf16_dots import round_bf16
 from ofdmgan_tpu_torch.signal.datagen import DatagenConfig, make_draws, synthetic_batch_from_draws
 from ofdmgan_tpu_torch.training import wgan_gp
 from ofdmgan_tpu_torch.training.schedules import make_adam
@@ -43,6 +44,7 @@ from ofdmgan_tpu_torch.training.trainer import Trainer, build_models
 from ofdmgan_tpu_torch.training.wgan_gp import LossConfig, TrainStep
 from ofdmgan_tpu_torch.utils.jax_params import from_jax_params, to_jax_params
 from ofdmgan_tpu_torch.utils.params_io import flatten_tree
+from jax_bf16_dots import with_bf16_operands
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 LEVELS, BASE, L, B, LR, N_CRITIC = 3, 4, 32, 8, 2e-4, 5
@@ -154,16 +156,17 @@ def _step(family, act_dtype=None, precision="float32", frame_length=16):
     ("mini", "float8_e4m3fn", "float32", ("kernel", "plain")),
     ("mini", "float8_e5m2", "float32", ("kernel", "plain")),
     ("mini", None, "tensorfloat32", ("kernel", "plain")),
-    ("mini", None, "bfloat16", ("kernel", "plain")),
+    ("mini", None, "bfloat16", ("kernel", "kernel")),
     ("mini", None, "bf16_tf32gp", ("kernel", "plain")),
     ("mini", None, "bf16_f32gp", ("kernel", "plain")),
     ("full", None, "float32", ("kernel", "plain")),
     ("full", "bfloat16", "float32", ("kernel", "plain")),
 ])
 def test_routes_for_each_family_act_dtype_and_precision(family, act_dtype, precision, routes):
-    """The critic kernel computes the float32 mini critic: with a storage
-    format or another precision the critic route is plain; the datagen
-    route does not depend on either (the batch is cast after it)."""
+    """The critic kernel computes the mini critic at float32 or bfloat16
+    precision: with a storage format or another precision the critic route
+    is plain; the datagen route does not depend on either (the batch is cast
+    after it)."""
     step = _step(family, act_dtype, precision)
     assert (step.datagen_route, step.critic_route) == routes
 
@@ -197,50 +200,64 @@ def test_a_tensorfloat32_step_restores_the_tf32_flags(start, monkeypatch):
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
 
 
-@pytest.mark.parametrize("precision,critic_dtypes", [
-    ("bfloat16", [torch.bfloat16] * 3),
-    ("bf16_tf32gp", [torch.bfloat16, torch.bfloat16, torch.float32]),
-    ("bf16_f32gp", [torch.bfloat16, torch.bfloat16, torch.float32]),
+@pytest.mark.parametrize("precision,rounded", [
+    ("bfloat16", [True] * 3),
+    ("bf16_tf32gp", [True, True, False]),
+    ("bf16_f32gp", [True, True, False]),
 ])
-def test_bf16_modes_keep_the_penalty_where_the_reference_does(precision, critic_dtypes):
-    """The critic's conv outputs in one critic update (real, fake, the
-    penalty's interpolate): bf16 operands under ``bfloat16``, the penalty
-    chain out of the autocast in the mixed modes."""
+def test_bf16_modes_keep_the_penalty_where_the_reference_does(precision, rounded):
+    """The critic's conv2 in one critic update (real, fake, the penalty's
+    interpolate): float32 outputs, each the conv of bf16-rounded operands
+    under ``bfloat16``, the penalty's on unrounded operands in the mixed
+    modes (reference wgan_gp.py:119-133)."""
     step = _step("mini", precision=precision)
+    step.reference = True   # the autograd critic (bfloat16 also routes to the kernel)
     step.loss_cfg = LossConfig(n_critic=1)
     seen = []
-    step.critic.conv2.register_forward_hook(lambda m, i, o: seen.append(o.dtype))
+    step.critic.conv2.register_forward_hook(lambda m, i, o: seen.append(
+        [t.detach().clone() for t in (i[0], m.weight, m.bias, o)]))
     gen = torch.Generator().manual_seed(1)
     batch = synthetic_batch_from_draws(make_draws(gen, B, 16), step.dg_cfg)
     metrics = step.run(batch, [torch.rand(B, generator=gen)])
-    assert seen[:3] == critic_dtypes
+    got = []
+    for x, w, bias, out in seen[:3]:
+        assert out.dtype == torch.float32
+        full = torch.nn.functional.conv1d(x, w, bias, 2, 1)
+        bf16 = torch.nn.functional.conv1d(round_bf16(x), round_bf16(w), bias, 2, 1)
+        assert float((bf16 - full).abs().max()) > 1e-4   # the two are told apart
+        got.append(bool(torch.allclose(out, bf16, rtol=1e-5, atol=1e-6)))
+        assert got[-1] != bool(torch.allclose(out, full, rtol=1e-5, atol=1e-6))
+    assert got == rounded
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
 
 
 def test_bf16_precision_critic_stays_within_the_reference_bf16_tolerance():
     """A critic forward under the port's ``bfloat16`` mode against the JAX
-    critic under ``jax.default_matmul_precision("bfloat16")``, at the
-    reference's bf16 tolerance (tests/test_unet_infer.py:146)."""
+    critic with the operands of each dot rounded to bf16, as
+    ``jax.default_matmul_precision("bfloat16")`` computes on a TPU (XLA's
+    CPU ignores the setting, so ``with_bf16_operands`` rounds them): float32
+    outputs, rtol 1e-5 (bf16 products are exact in float32; only the sums'
+    order differs)."""
     jc = JMiniCritic()
     x0 = jnp.zeros((1, 16, 2))
     params = jc.init(jax.random.PRNGKey(3), x0, x0)
     rng = np.random.default_rng(4)
     a, b = (rng.standard_normal((32, 16, 2)).astype(np.float32) for _ in range(2))
-    with jax.default_matmul_precision("bfloat16"):
-        ref = np.asarray(jax.jit(jc.apply)(params, a, b))
+    ref = np.asarray(with_bf16_operands(jc.apply)(params, a, b))
     tc = MiniDiscriminator()
     tc.load_state_dict(from_jax_params(_np(params)))
-    with torch.no_grad(), wgan_gp.matmul_precision("bfloat16", "cpu"):
+    with torch.no_grad(), wgan_gp.matmul_precision("bfloat16"):
         got = tc(torch.from_numpy(a), torch.from_numpy(b))
-    assert got.dtype == torch.bfloat16
-    np.testing.assert_allclose(got.float().numpy(), ref, rtol=0.05, atol=0.2)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-6)
+    assert np.abs(np.asarray(jc.apply(params, a, b)) - ref).max() > 1e-3   # bf16 did round
 
 
 def test_matmul_precision_must_be_a_known_mode():
     with pytest.raises(ValueError):
         _step("mini", precision="highest")
     with pytest.raises(ValueError):
-        with wgan_gp.matmul_precision("fp16", "cpu"):
+        with wgan_gp.matmul_precision("fp16"):
             pass
 
 

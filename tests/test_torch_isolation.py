@@ -45,7 +45,12 @@ MODULES = ("ofdmgan_tpu_torch.signal.channel", "ofdmgan_tpu_torch.signal.image_o
            "ofdmgan_tpu_torch.make_rtl_handoff", "ofdmgan_tpu_torch.vcd_crosscheck",
            "ofdmgan_tpu_torch.simplegan", "ofdmgan_tpu_torch.simplegan.model",
            "ofdmgan_tpu_torch.simplegan.export", "ofdmgan_tpu_torch.simplegan.train_cli",
-           "ofdmgan_tpu_torch.selfcheck")
+           "ofdmgan_tpu_torch.selfcheck", "ofdmgan_tpu_torch.ops.bf16_dots",
+           "ofdmgan_tpu_torch.export_serving", "ofdmgan_tpu_torch.bench_infer",
+           "ofdmgan_tpu_torch.viz", "ofdmgan_tpu_torch.viz.signal_viz",
+           "ofdmgan_tpu_torch.viz.image_transmission", "ofdmgan_tpu_torch.viz.diagrams",
+           "ofdmgan_tpu_torch.distributional_figure", "ofdmgan_tpu_torch.cross_channel_matrix",
+           "ofdmgan_tpu_torch.utils.torch_port", "ofdmgan_tpu_torch.model_selftest")
 
 IMPORT_ALL = f"""
 import sys
@@ -104,7 +109,9 @@ def test_a_module_level_pillow_import_fails_the_check(tmp_path, name, line):
 def test_entry_points_raise_without_a_gpu(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present")
-    from ofdmgan_tpu_torch import make_rtl_handoff, selfcheck, vcd_crosscheck
+    from ofdmgan_tpu_torch import (bench_infer, cross_channel_matrix, distributional_figure,
+                                   export_serving, make_rtl_handoff, model_selftest, selfcheck,
+                                   vcd_crosscheck)
     from ofdmgan_tpu_torch import train as train_cli
     from ofdmgan_tpu_torch.device import resolve_device
     from ofdmgan_tpu_torch.simplegan import train_cli as simplegan_cli
@@ -119,7 +126,11 @@ def test_entry_points_raise_without_a_gpu(tmp_path):
                  lambda: selfcheck.main([]),
                  lambda: vcd_crosscheck.main(["--rtl_dir", out]),
                  lambda: arch_check.run_full_verification(output_dir=out),
-                 lambda: cosim_report.run_cosim_verification(output_dir=out)):
+                 lambda: cosim_report.run_cosim_verification(output_dir=out),
+                 lambda: export_serving.main(["--checkpoint", f"{out}/g.npz", "--out", out]),
+                 lambda: bench_infer.main([]), lambda: model_selftest.main([]),
+                 lambda: cross_channel_matrix.main(["--out", f"{out}/m.json"]),
+                 lambda: distributional_figure.main(["--out", f"{out}/f.png"])):
         with pytest.raises(RuntimeError, match="device='cpu'"):
             call()
     assert resolve_device("cpu") == torch.device("cpu")
