@@ -54,7 +54,17 @@ the ``bfloat16`` mode's critic forward on the card against the CPU's, and
 its routes); takes one full step with ``--remat`` and one without from
 phase ``full``'s trained state, then times both with their peak memory;
 and runs the image-transmission study with the mini generator on the card
-against the CPU. Every phase prints one JSON line with its wall seconds as
+against the CPU. Phase ``parallel`` runs the parallel strategies: leg a
+trains the mini recipe's data-parallel trainer 2 x 20 steps on a world of
+one over NCCL (NCCL refuses two ranks on one GPU) and holds five more steps
+bit for bit against the plain step; leg b trains it on two ranks that share
+the card over gloo, in lockstep, and holds one step against a
+single-process step on both ranks' draws; leg c trains the full U-Net pair
+at full width under gspmd ``{dp: 2}``, ``{dp: 1, tp: 2}``, ``{dp: 1, sp:
+2}`` and the ``pp = 2`` pipeline (supervised, 8 microbatches), each rank
+resuming from one warmed-up checkpoint, and holds each layout's step against
+the single-device step on the same global draws (the datagen kernel's);
+then times each leg. Every phase prints one JSON line with its wall seconds as
 it ends. Any failed check raises, and the
 script exits non-zero. The last lines are the kernel table, the card's name
 and power limit, and the result line.
@@ -157,7 +167,38 @@ reference step's update within 1e-3 of each tensor's largest update (from
 one state, the second step); the ``--remat`` step's update within 1e-6 of each
 tensor's largest update of the plain step's, with cuDNN's deterministic
 algorithms (recomputation computes the same function); the image study's
-PSNR, SSIM, NMSE and BER within rtol 1e-4 of the CPU's.
+PSNR, SSIM, NMSE and BER within rtol 1e-4 of the CPU's. Phase
+``parallel``: leg a ``torch.equal`` to the plain step (a mean over one rank
+is exact; cuDNN's deterministic algorithms) with exactly one datagen and
+five critic launches a step; leg b the ranks' parameters ``torch.equal``
+after every step and, from the trained state, the two-rank step within
+1e-3 of each tensor's largest update of the single-process step (deterministic
+cuDNN); leg c, from PAR_WARM_STEPS single-device steps (from a fresh Adam
+state an update carries rounding as a full step of either sign), each GAN
+layout's step within 1e-2 and the pipeline's (supervised) within 1e-3 of
+each tensor's largest update of the single-device step (deterministic
+cuDNN), their metrics within rtol 1e-4, the ranks' parameters equal, the
+datagen kernel launched, the pipeline's loss within rtol 1e-5. The GAN
+gate is wider because every layout sums the step's reductions in another
+order, and the GAN step's gradients (the critic's a difference of sums
+over fake and real frames) then move by 2e-4 to 1.2e-3 of each tensor's
+largest entry on the card; Adam with b1 = 0 divides each entry by its own
+RMS, so an entry whose gradient and RMS are 1e-5 to 1e-4 of its tensor's
+largest turns that into a share of a largest update: up to 2.9e-3 for the
+single-device step with cuDNN's default algorithms, up to 4.6e-3 for a
+layout (PERF.md section 6). Two controls
+show the gate's power: the same single-device step with TF32 operands,
+which must lie beyond it (7.4e-2 GAN, 0.78 supervised, on an H100), and the
+CPU tests' steps with one collective left out (1.9 of a largest update,
+``tests/test_torch_parallel_gspmd.py``). The phase reports, for each
+layout and control, the worst entry: its tensor, its update, last gradient
+and RMS over their tensor's largest, and the last gradients' distance
+before Adam's division. Leg c's global batch is 512
+where two ranks at the single-device step's peak fit 90 % of the card, else
+256 (printed with its reason); its times are host clocks around
+PAR_TIMED_STEPS steps ending in a synchronize, with each rank's peak memory
+and the bytes through collectives a step (``staged_bytes``: the CUDA
+payloads gloo takes through host memory).
 """
 
 from __future__ import annotations
@@ -224,6 +265,22 @@ REMAT_RTOL = 1e-6          # serve: a --remat full step against the plain one, o
 FULL_STEP_PEAK_GB = 36.40  # the full step's peak memory recorded before (PERF.md section 5)
 TRAIN_LOG_KEYS = {"train/d_loss", "train/g_loss", "train/wasserstein", "train/rec_loss",
                   "train/gp", "val/rec_loss", "val/mse"}   # the reference's log keys
+PAR_MINI_STEPS = 20        # parallel: mini steps per epoch (two epochs) of legs a and b
+PAR_CHECK_STEPS = 5        # parallel: leg a's steps held bit for bit against the plain step;
+                           # leg b's steps with the ranks' parameters compared after each
+PAR_WARM_STEPS = 6         # parallel, leg c: single-device steps before the compared one
+PAR_TIMED_STEPS = 2        # parallel, leg c: timed steps per layout
+PAR_SEED = 77              # parallel, leg c: the compared step's generator seed
+PAR_TIMEOUT_S = 600        # parallel: each launch of ranks must end within this
+PAR_PP_RTOL = 1e-5         # parallel: the pipeline's loss against the single-device step's
+PAR_STEP_RTOL = {"gan": 1e-2,   # parallel, leg c: a layout's update against the single-
+                 "sup": 1e-3}   # device step's, of each tensor's largest update (the module
+                                # docstring says why the GAN step's is wider)
+PAR_METRIC_RTOL = 1e-4     # parallel, leg c: its metrics against the single-device step's
+PAR_LAYOUTS = {"dp2": dict(strategy="gspmd", data_parallel=2),
+               "tp2": dict(strategy="gspmd", data_parallel=1, tensor_parallel=2),
+               "sp2": dict(strategy="gspmd", data_parallel=1, seq_parallel=2),
+               "pp2": dict(strategy="pp", pipeline_parallel=2, microbatches=8)}
 
 
 def log(phase: str, t0: float, **fields) -> None:
@@ -1642,6 +1699,399 @@ def serve_phase(dev, mini_ckpt: str, rtl_ckpt: str, full_ckpt: str) -> dict:
     return out
 
 
+def _rank_device() -> torch.device:
+    """The card of this rank (``distributed.initialize`` made it current)."""
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _cpu_params(model) -> dict:
+    return {n: p.detach().cpu().clone() for n, p in all_params(model).items()}
+
+
+def _cpu_moments(trainer) -> dict:
+    """Each trained parameter's Adam moments ``(exp_avg, exp_avg_sq)`` on
+    the CPU, named as ``all_params``; with b1 = 0, ``exp_avg`` is the last
+    gradient."""
+    if trainer.config.training.betas[0] != 0:
+        raise AssertionError(f"Adam's b1 is {trainer.config.training.betas[0]}, not 0: "
+                             "its first moment is not the last gradient")
+    out = {}
+    for tag, module, opt in (("generator", trainer.generator, trainer.opt_g),
+                             ("critic", trainer.critic, trainer.opt_d)):
+        for n, p in module.named_parameters():
+            st = opt.opt.state.get(p)
+            if st:
+                out[f"{tag}.{n}"] = (st["exp_avg"].detach().cpu().clone(),
+                                     st["exp_avg_sq"].detach().cpu().clone())
+    return out
+
+
+def worst_update(start: dict, a: dict, b: dict, mom_a: dict, mom_b: dict) -> dict:
+    """Where the update ``a - start`` lies farthest from ``b - start``, over
+    that tensor's largest entry of ``b``'s update: the tensor, the entry and
+    that share (``rel``); at the entry, ``b``'s update, last gradient and RMS
+    gradient (the root of Adam's second moment) each over its tensor's
+    largest, and the two last gradients' difference over ``b``'s there. And
+    the two steps' last gradients compared before Adam divides each entry by
+    its own RMS: the largest difference of any tensor over its largest
+    gradient (``grad_rel``, in ``grad_tensor``)."""
+    worst = {"rel": -1.0}
+    for name, p0 in start.items():
+        ua, ub = (a[name] - p0).reshape(-1), (b[name] - p0).reshape(-1)
+        size = float(ub.abs().max())
+        if not size:
+            continue
+        diff = (ua - ub).abs()
+        i = int(diff.argmax())
+        if not float(diff[i]) / size <= worst["rel"]:   # so that a NaN is kept
+            worst = {"tensor": name, "entry": i, "rel": float(diff[i]) / size,
+                     "update_over_largest": float(ub[i].abs()) / size}
+    ga, gb = (m[worst["tensor"]][0].reshape(-1) for m in (mom_a, mom_b))
+    rms = mom_b[worst["tensor"]][1].reshape(-1).sqrt()
+    i = worst["entry"]
+    worst.update(grad_over_largest=float(gb[i].abs() / gb.abs().max()),
+                 rms_over_largest=float(rms[i] / rms.max()),
+                 grad_rel_diff_at_entry=float((ga[i] - gb[i]).abs()
+                                              / gb[i].abs().clamp_min(1e-30)))
+    worst["grad_rel"], worst["grad_tensor"] = max(
+        (float((mom_a[n][0] - m[0]).abs().max() / m[0].abs().max()), n)
+        for n, m in mom_b.items() if n in mom_a and float(m[0].abs().max()))
+    return worst
+
+
+def _counts_reset() -> None:
+    from ofdmgan_tpu_torch.ops import critic_kernel as ck, datagen_kernel as dk
+    from ofdmgan_tpu_torch.parallel import distributed
+    dk.launches = 0
+    ck.launches = 0
+    distributed.reset_traffic()
+
+
+def _counts() -> dict:
+    from ofdmgan_tpu_torch.ops import critic_kernel as ck, datagen_kernel as dk
+    return {"datagen": dk.launches, "critic_grad": ck.launches}
+
+
+def _deterministic(fn):
+    """``fn()`` with cuDNN's deterministic algorithms (ROADMAP trap 2)."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+        return out
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def _mini_config(d: str):
+    from ofdmgan_tpu_torch.config import Config
+    return Config(checkpoint_dir=f"{d}/ck", log_dir=f"{d}/logs", export_after_training=False)
+
+
+def parallel_rank_nccl(d: str) -> dict:
+    """Leg a, on a world of one over NCCL: the mini recipe's data-parallel
+    trainer, two epochs, through both kernels; then PAR_CHECK_STEPS steps
+    bit for bit against the plain ``TrainStep`` on the same state and
+    draws (a mean over one rank is exact); step times of both."""
+    from ofdmgan_tpu_torch.parallel import distributed
+    from ofdmgan_tpu_torch.parallel.mesh import ShardedTrainStep, draw_seed, replica_generator
+    from ofdmgan_tpu_torch.training.trainer import Trainer
+    dev = _rank_device()
+    trainer = Trainer(_mini_config(f"{d}/a"), samples_per_epoch=PAR_MINI_STEPS * MAIN_B,
+                      val_samples=256, seed=0, device=dev, data_parallel=1)
+    if not isinstance(trainer.step, ShardedTrainStep):
+        raise AssertionError(f"leg a did not take the data-parallel step: {type(trainer.step)}")
+    _counts_reset()
+    t = time.perf_counter()
+    history = trainer.train(epochs=2, experiment_name="parallel_a")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t
+    launches = _counts()
+    traffic = dict(distributed.traffic)
+    plain = clone_step(trainer, False)
+    seeds_dp, seeds_plain = torch.Generator().manual_seed(99), torch.Generator().manual_seed(99)
+    equal = []
+    for _ in range(PAR_CHECK_STEPS):
+        m_dp = _deterministic(lambda: trainer.step(seeds_dp))
+        m_plain = _deterministic(
+            lambda: plain(replica_generator(draw_seed(seeds_plain), 0, dev)))
+        equal.append(all(torch.equal(a, b) for a, b in zip(all_params(trainer.step).values(),
+                                                           all_params(plain).values()))
+                     and all(torch.equal(m_dp[k], m_plain[k]) for k in m_plain))
+    ms_dp, peak_dp = timed_steps(trainer.step, seeds_dp, n=20)
+    ms_plain, _ = timed_steps(plain, torch.Generator(device=dev).manual_seed(5), n=20)
+    return {"backend": torch.distributed.get_backend(), "world": distributed.world_size(),
+            "routes": {"datagen": trainer.step.datagen_route,
+                       "critic": trainer.step.critic_route},
+            "launches": launches, "train_s": train_s, "history": history,
+            "traffic_per_step": {k: v / (2 * PAR_MINI_STEPS) for k, v in traffic.items()},
+            "bit_equal_steps": equal, "ms_per_step": {"dp_nccl": ms_dp, "plain": ms_plain},
+            "peak_memory_gb": peak_dp / 1e9}
+
+
+def _same_on_every_rank(model) -> bool:
+    """Whether this rank's parameters equal rank 0's, bit for bit."""
+    from ofdmgan_tpu_torch.parallel import distributed
+    flat = torch.cat([p.detach().reshape(-1) for p in all_params(model).values()])
+    ref = distributed.broadcast(flat.clone(), 0)
+    return torch.equal(flat, ref)
+
+
+def _leg_b(d: str) -> dict:
+    """Leg b: the mini recipe's data-parallel trainer on two ranks that
+    share the card over gloo: one epoch, PAR_CHECK_STEPS steps with both
+    ranks' parameters compared after each, then one step (deterministic
+    cuDNN) against a single-process step on both replicas' draws."""
+    from ofdmgan_tpu_torch.parallel import distributed
+    from ofdmgan_tpu_torch.parallel.mesh import draw_seed, replica_generator
+    from ofdmgan_tpu_torch.training.trainer import Trainer
+    dev = _rank_device()
+    trainer = Trainer(_mini_config(f"{d}/b"), samples_per_epoch=PAR_MINI_STEPS * MAIN_B,
+                      val_samples=256, seed=0, device=dev, data_parallel=2)
+    _counts_reset()
+    t = time.perf_counter()
+    trainer.train(epochs=1, experiment_name="parallel_b")
+    lockstep = []
+    for _ in range(PAR_CHECK_STEPS):
+        trainer.step(trainer.step_seeds)
+        lockstep.append(_same_on_every_rank(trainer.step))
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t
+    single = clone_step(trainer, False)   # the global batch, one process
+    start = {n: p.detach().clone() for n, p in all_params(single).items()}
+    seeds = torch.Generator()
+    seeds.set_state(trainer.step_seeds.get_state())
+    seed = draw_seed(seeds)   # the seed the next step draws
+    m_dp = _deterministic(lambda: trainer.step(trainer.step_seeds))
+    launches = _counts()
+    traffic = dict(distributed.traffic)
+    lockstep.append(_same_on_every_rank(trainer.step))
+    local = trainer.step.step   # this rank's TrainStep: global_batch / 2 frames
+    parts = [local.draw(replica_generator(seed, i, dev)) for i in range(2)]
+    batch = {k: torch.cat([p[0][k] for p in parts]) for k in parts[0][0]}
+    alphas = [torch.cat([p[1][j] for p in parts]) for j in range(len(parts[0][1]))]
+    m_single = _deterministic(lambda: single.run(batch, alphas))
+    diff, rel = updates_agree(start, all_params(trainer.step), all_params(single), STEP_RTOL,
+                              "the two-rank and the single-process mini steps")
+    ms, _ = timed_steps(trainer.step, trainer.step_seeds, n=PAR_MINI_STEPS)
+    steps = PAR_MINI_STEPS + PAR_CHECK_STEPS + 1
+    return {"routes": {"datagen": trainer.step.datagen_route,
+                       "critic": trainer.step.critic_route},
+            "launches": launches, "steps": steps, "train_s": train_s,
+            "traffic_per_step": {k: v / steps for k, v in traffic.items()},
+            "lockstep": lockstep, "update_max_abs_diff": diff, "update_max_rel_diff": rel,
+            "ms_per_step": ms,
+            "metrics_dp": {k: float(v) for k, v in m_dp.items()},
+            "metrics_single": {k: float(v) for k, v in m_single.items()}}
+
+
+def _full_trainer(d: str, batch: int, supervised: bool, dev, **parallel):
+    """A full-width trainer (levels 5, base 32, L = 1024, AWGN) at global
+    ``batch``; ``supervised``: n_critic 0, adversarial weight 0."""
+    from ofdmgan_tpu_torch.config import Config
+    from ofdmgan_tpu_torch.training.trainer import Trainer, build_models
+    base = Config(checkpoint_dir=f"{d}/ck", log_dir=f"{d}/logs", export_after_training=False)
+    tr = dataclasses.replace(base.training, batch_size=batch,
+                             **(dict(n_critic=0, adversarial_weight=0.0) if supervised else {}))
+    cfg = dataclasses.replace(base, frame_length=FULL_L, training=tr)
+    g, dd = build_models(cfg, "full", seed=0)
+    return Trainer(cfg, samples_per_epoch=batch, val_samples=batch, seed=0, device=dev,
+                   generator=g, discriminator=dd, **parallel)
+
+
+def _leg_c(d: str, name: str, batch: int) -> dict:
+    """One layout of leg c: the full-width trainer under it resumes from
+    the warmed-up checkpoint (every rank loads it and places it under the
+    layout), takes the compared step (deterministic cuDNN) on the global
+    draws of PAR_SEED, then one untimed step and PAR_TIMED_STEPS timed
+    steps."""
+    from ofdmgan_tpu_torch.parallel import distributed
+    dev = _rank_device()
+    supervised = name == "pp2"
+    trainer = _full_trainer(f"{d}/{name}", batch, supervised, dev, **PAR_LAYOUTS[name])
+    trainer.load_checkpoint(f"{d}/{'sup' if supervised else 'gan'}_start")
+    _counts_reset()
+    m = _deterministic(lambda: trainer.step(torch.Generator(device=dev).manual_seed(PAR_SEED)))
+    launches = _counts()
+    trainer._gather_state()
+    params, moments = _cpu_params(trainer), _cpu_moments(trainer)
+    same = _same_on_every_rank(trainer)
+    rng = torch.Generator(device=dev).manual_seed(3)
+    trainer.step(rng)   # untimed: cuDNN's algorithm choice and workspaces
+    distributed.reset_traffic()
+    ms, peak = timed_steps(trainer.step, rng, n=PAR_TIMED_STEPS, warmup=0)
+    traffic = {k: v / PAR_TIMED_STEPS for k, v in distributed.traffic.items()}
+    main = distributed.rank() == 0
+    return {"params": params if main else None, "moments": moments if main else None,
+            "same_on_every_rank": same,
+            "metrics": {k: float(v) for k, v in m.items()}, "launches": launches,
+            "ms_per_step": ms, "peak_memory_gb": peak / 1e9, "traffic_per_step": traffic,
+            "mesh": dict(zip(trainer.mesh.mesh_dim_names, trainer.mesh.shape))}
+
+
+def parallel_rank_gloo(d: str, batch: int) -> dict:
+    """Legs b and c on one of two ranks that share the card over gloo."""
+    import gc
+    out = {"b": _leg_b(d), "c": {}}
+    for name in PAR_LAYOUTS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out["c"][name] = _leg_c(d, name, batch)
+    return out
+
+
+def parallel_phase(dev) -> dict:
+    """Phase ``parallel``: the parallel strategies on the card. Leg a: the
+    data-parallel mini trainer on a world of one over NCCL (NCCL refuses
+    two ranks on one GPU), bit for bit against the plain step. Leg b: the
+    same trainer on two ranks sharing the card over gloo, in lockstep and
+    within STEP_RTOL of a single-process step on both ranks' draws. Leg c:
+    the full U-Net at full width under gspmd {dp: 2}, {dp: 1, tp: 2},
+    {dp: 1, sp: 2} and the pp = 2 pipeline (supervised, 8 microbatches),
+    each within PAR_STEP_RTOL (metrics PAR_METRIC_RTOL) of the single-device
+    step from the same warmed-up state on the same global draws (the
+    datagen kernel's), the pipeline's loss within PAR_PP_RTOL. Returns the
+    phase line's fields."""
+    import gc
+    from ofdmgan_tpu_torch.parallel import distributed
+    d = "build/chip_smoke/parallel"
+    out = {}
+    t = time.time()
+    out["a"] = distributed.launch(parallel_rank_nccl, 1, (d,), device="cuda:0",
+                                  timeout_s=PAR_TIMEOUT_S)[0]
+    a = out["a"]
+    want = {"datagen": 2 * PAR_MINI_STEPS, "critic_grad": 2 * PAR_MINI_STEPS * 5}
+    if a["backend"] != "nccl" or a["launches"] != want:
+        raise AssertionError(f"leg a: backend {a['backend']}, launches {a['launches']}, "
+                             f"not {want} (1 datagen and 5 critic launches a step)")
+    if not all(a["bit_equal_steps"]):
+        raise AssertionError(f"leg a: the NCCL world of one left the plain step: "
+                             f"{a['bit_equal_steps']}")
+    out["a_s"] = time.time() - t
+
+    # leg c's single-device references: from seed 0, PAR_WARM_STEPS steps,
+    # a checkpoint (the legs' start), then the compared step
+    t = time.time()
+    total = torch.cuda.get_device_properties(dev).total_memory
+
+    def reference(kind: str, batch: int) -> dict:
+        trainer = _full_trainer(f"{d}/ref_{kind}", batch, kind == "sup", dev)
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(PAR_WARM_STEPS):
+            _deterministic(lambda: trainer.step(trainer.rng))
+        peak = torch.cuda.max_memory_allocated()
+        trainer.save_checkpoint(f"{d}/{kind}_start")
+        start = _cpu_params(trainer)
+        m = _deterministic(lambda: trainer.step(torch.Generator(device=dev).manual_seed(PAR_SEED)))
+        ref = {"start": start, "params": _cpu_params(trainer), "moments": _cpu_moments(trainer),
+               "peak_gb": peak / 1e9, "metrics": {k: float(v) for k, v in m.items()}}
+        # the same step with cuDNN's default algorithms, whose weight
+        # gradients add in another order: how far a change of summation
+        # order alone moves the update (reported, not gated)
+        trainer.load_checkpoint(f"{d}/{kind}_start")
+        trainer.step(torch.Generator(device=dev).manual_seed(PAR_SEED))
+        torch.cuda.synchronize()
+        ref["default_cudnn"] = worst_update(start, _cpu_params(trainer), ref["params"],
+                                            _cpu_moments(trainer), ref["moments"])
+        # the control: the same step at a lower precision (TF32 operands,
+        # deterministic cuDNN), which the gate must tell from a sound layout
+        trainer.load_checkpoint(f"{d}/{kind}_start")
+        trainer.step.matmul_precision = "tensorfloat32"
+        _deterministic(lambda: trainer.step(torch.Generator(device=dev).manual_seed(PAR_SEED)))
+        trainer.step.matmul_precision = "float32"
+        ref["tf32"] = worst_update(start, _cpu_params(trainer), ref["params"],
+                                   _cpu_moments(trainer), ref["moments"])
+        trainer.step(trainer.rng)   # untimed: cuDNN's algorithm choice and workspaces
+        ms, peak_timed = timed_steps(trainer.step, trainer.rng, n=PAR_TIMED_STEPS, warmup=0)
+        ref["timed"] = {"ms_per_step": ms, "peak_memory_gb": peak_timed / 1e9}
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        return ref
+
+    # 512 where two ranks, each at most at the single-rank step's peak (a
+    # rank of every layout holds at most the single step's activations),
+    # fit the card with a tenth to spare; else 256
+    batch = FULL_B
+    refs = {"gan": reference("gan", batch)}
+    fits = 2 * refs["gan"]["peak_gb"] * 1e9 <= 0.9 * total
+    if not fits:
+        batch = FULL_B // 2
+        refs["gan"] = reference("gan", batch)
+    refs["sup"] = reference("sup", batch)
+    reason = (f"two ranks at the single-rank step's peak of {refs['gan']['peak_gb']:.2f} GB "
+              f"{'fit' if fits else 'do not fit'} 90 % of the card's {total / 1e9:.1f} GB")
+    out["batch"] = {"global": batch, "cut": not fits, "reason": reason,
+                    "parent_allocated_gb": torch.cuda.memory_allocated() / 1e9}
+    print(f"parallel: full-width global batch {batch}: {reason}", flush=True)
+    out["ref_s"] = time.time() - t
+
+    t = time.time()
+    ranks = distributed.launch(parallel_rank_gloo, 2, (d, batch), device="cuda:0",
+                               backend="gloo", timeout_s=PAR_TIMEOUT_S)
+    out["bc_s"] = time.time() - t
+    b = [r["b"] for r in ranks]
+    for r, leg in enumerate(b):
+        if not all(leg["lockstep"]) or not all(leg["launches"].values()):
+            raise AssertionError(f"leg b, rank {r}: lockstep {leg['lockstep']}, "
+                                 f"launches {leg['launches']}")
+    out["b"] = {"ranks": b}
+    out["c"] = {}
+    failed = []
+    for name in PAR_LAYOUTS:
+        legs = [r["c"][name] for r in ranks]
+        kind = "sup" if name == "pp2" else "gan"
+        ref = refs[kind]
+        if not all(leg["same_on_every_rank"] for leg in legs):
+            raise AssertionError(f"leg c {name}: the ranks' parameters differ")
+        if not all(leg["launches"]["datagen"] > 0 for leg in legs):
+            raise AssertionError(f"leg c {name}: the datagen kernel was not launched: "
+                                 f"{[leg['launches'] for leg in legs]}")
+        try:
+            diff, rel = updates_agree(ref["start"], legs[0]["params"], ref["params"],
+                                      PAR_STEP_RTOL[kind],
+                                      f"leg c {name} and the single-device step")
+        except AssertionError as e:   # every leg's numbers are logged before the phase fails
+            failed.append(str(e))
+            diff, rel = updates_agree(ref["start"], legs[0]["params"], ref["params"], None, "")
+        metric_rel = {k: abs(legs[0]["metrics"][k] - v) / max(abs(v), 1e-12)
+                      for k, v in ref["metrics"].items()}
+        if not all(v <= PAR_METRIC_RTOL for v in metric_rel.values()):   # so that a NaN fails
+            failed.append(f"leg c {name}: metrics {legs[0]['metrics']} against the single-device "
+                          f"step's {ref['metrics']} (rtol {PAR_METRIC_RTOL})")
+        if name == "pp2" and not metric_rel["rec_loss"] <= PAR_PP_RTOL:
+            failed.append(f"leg c pp2: rec_loss {legs[0]['metrics']['rec_loss']} against "
+                          f"{ref['metrics']['rec_loss']} (rtol {PAR_PP_RTOL})")
+        worst = worst_update(ref["start"], legs[0]["params"], ref["params"],
+                             legs[0]["moments"], ref["moments"])
+        for leg in legs:
+            leg.pop("params")
+            leg.pop("moments")
+        out["c"][name] = {"update_max_abs_diff": diff, "update_max_rel_diff": rel,
+                          "worst": worst,
+                          "metric_max_rel_diff": max(metric_rel.values()), "ranks": legs,
+                          "single_device_metrics": ref["metrics"],
+                          "single_device_timed": ref["timed"]}
+    # the gate's power: the single-device step at TF32 lies beyond it
+    out["controls"] = {kind: {"default_cudnn": ref["default_cudnn"], "tf32": ref["tf32"]}
+                       for kind, ref in refs.items()}
+    for kind, ref in refs.items():
+        if not ref["tf32"]["rel"] > PAR_STEP_RTOL[kind]:
+            failed.append(f"the {kind} step at TF32 lies within the gate ({ref['tf32']['rel']:.3e}"
+                          f" of a largest update, limit {PAR_STEP_RTOL[kind]}): it cannot tell a "
+                          f"lower-precision step from a sound layout")
+    launches = {k: a["launches"][k] + sum(leg["launches"][k] for leg in b)
+                + sum(r["c"][n]["launches"][k] for r in ranks for n in PAR_LAYOUTS)
+                for k in ("datagen", "critic_grad")}
+    out["launches"] = launches
+    if failed:
+        print(json.dumps({"phase": "parallel", "failed_gates": failed, **out}), flush=True)
+        raise AssertionError("; ".join(failed))
+    return out
+
+
 def main() -> int:
     t0 = time.time()
     if not torch.cuda.is_available():
@@ -1909,7 +2359,14 @@ def main() -> int:
         raise AssertionError(f"the serving path launched {serve_launches}")
     log("serve", t, launches=serve_launches, **srv)
 
-    # ---- 11. report
+    # ---- 11. parallelism: the data-parallel step over NCCL (a world of
+    # one) and over gloo (two ranks on the card), and the full U-Net under
+    # gspmd dp, tp, sp and the pp pipeline; counts are read in each rank
+    t = time.time()
+    par = parallel_phase(dev)
+    log("parallel", t, **par)
+
+    # ---- 12. report
     db, dby = datagen_bound_ms(MAIN_B, 16)
     cb, cby = critic_bound_ms(MAIN_B)
     dg_main, cr_main = dg_times[f"L16_B{MAIN_B}"], cr_times[MAIN_B]
@@ -1925,7 +2382,8 @@ def main() -> int:
                               "quant": quant_launches["datagen"],
                               "eval": eval_launches["datagen"],
                               "verify": verify_launches["datagen"],
-                              "serve": serve_launches["datagen"]}},
+                              "serve": serve_launches["datagen"],
+                              "parallel": par["launches"]["datagen"]}},
         {"name": "critic_grad", "route": "cuda", "source": "ofdmgan_tpu_torch/csrc/critic_grad.cu",
          "replaces": "ofdmgan_tpu/ops/pallas_critic.py:195", "launches": launches["critic_grad"],
          "max_abs_err": critic_err[MAIN_B], "ms": cr_main["ms"],
@@ -1937,7 +2395,8 @@ def main() -> int:
                               "quant": quant_launches["critic_grad"],
                               "eval": eval_launches["critic_grad"],
                               "verify": verify_launches["critic_grad"],
-                              "serve": serve_launches["critic_grad"]}},
+                              "serve": serve_launches["critic_grad"],
+                              "parallel": par["launches"]["critic_grad"]}},
     ]
     log("total", t0)
     print(json.dumps({"kernels": kernels}), flush=True)

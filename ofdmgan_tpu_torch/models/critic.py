@@ -47,7 +47,8 @@ class MiniDiscriminator(nn.Module):
 
 
 def compute_gradient_penalty(critic: nn.Module, real: torch.Tensor, fake: torch.Tensor,
-                             condition: torch.Tensor, alpha: torch.Tensor) -> torch.Tensor:
+                             condition: torch.Tensor, alpha: torch.Tensor,
+                             frame_sum=None) -> torch.Tensor:
     """E[(||∇_x D(x, c)||_2 - 1)^2] at x = alpha·real + (1-alpha)·fake.
 
     ``alpha`` ``[B]`` is one uniform per sample, drawn by the caller (the
@@ -55,7 +56,9 @@ def compute_gradient_penalty(critic: nn.Module, real: torch.Tensor, fake: torch.
     penalty's own parameter gradient is second order. As in the reference,
     the interpolate is kept in ``real``'s storage dtype, so its gradient
     arrives rounded to that format; an fp8 gradient is upcast before the
-    norm is summed.
+    norm is summed. ``frame_sum(t)`` sums each frame's ``[B, ...]`` entries
+    where a frame is split across processes (sequence parallelism); by
+    default the frame is whole here.
     """
     a = alpha.reshape(-1, *([1] * (real.ndim - 1)))
     f32 = torch.float32
@@ -65,5 +68,7 @@ def compute_gradient_penalty(critic: nn.Module, real: torch.Tensor, fake: torch.
     (grads,) = torch.autograd.grad(score, interp, create_graph=True)
     if grads.dtype in FP8_DTYPES:
         grads = grads.float()
-    norms = torch.sqrt((grads.reshape(grads.shape[0], -1) ** 2).sum(dim=1) + 1e-12)
+    sq = grads ** 2
+    sq = sq.reshape(sq.shape[0], -1).sum(dim=1) if frame_sum is None else frame_sum(sq)
+    norms = torch.sqrt(sq + 1e-12)
     return ((norms - 1.0) ** 2).mean()

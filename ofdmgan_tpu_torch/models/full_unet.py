@@ -15,9 +15,14 @@ resolution). Submodule names are the reference's layer names
 
 Both models take and return channels-last ``[B, L, 2]`` and run
 channels-first inside: each transposes once at its boundary. ``encode`` and
-``decode`` are separate so the pipeline stages of ROADMAP A.8 can apply
-them apart. The reference's tensor-parallel shardings
-(``full_unet.py:185-251``) wait for A.8.
+``decode`` are separate so that the two stages of the pipeline
+(``parallel/pipeline.py``) apply them apart. A ``conv_fn(conv, name, h)``
+given to either model's forward computes each convolution in place of the
+layer's own call (the tensor- and sequence-parallel convolutions of
+``parallel/gspmd.py``), and the critic's ``pool`` takes its sum over
+length further (across the processes that hold the frame's other pieces).
+``unet_param_shardings`` and ``unet_param_shardings_rowparallel`` are the
+reference's tensor-parallel rules (``full_unet.py:185-251``).
 
 ``weight_bits``/``act_bits`` > 0 simulate the int8 export's quantization
 (``full_unet.py:53-156``), and train under it through the straight-through
@@ -33,7 +38,7 @@ float32, as flax's promotion reads them in the reference.
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -89,42 +94,44 @@ class FullUNetGenerator(nn.Module):
     def _quant_act(self, h: torch.Tensor) -> torch.Tensor:
         return fake_quantize_auto(h, self.act_bits) if self.act_bits else h
 
-    def _layer(self, name: str, h: torch.Tensor) -> torch.Tensor:
+    def _layer(self, name: str, h: torch.Tensor, conv_fn=None) -> torch.Tensor:
         """Conv ``name``, then LeakyReLU and the activation's quantization."""
-        return self._quant_act(F.leaky_relu(self._conv(name, h), self.leaky_slope))
+        return self._quant_act(F.leaky_relu(self._conv(name, h, conv_fn), self.leaky_slope))
 
-    def _conv(self, name: str, h: torch.Tensor) -> torch.Tensor:
+    def _conv(self, name: str, h: torch.Tensor, conv_fn=None) -> torch.Tensor:
         conv = getattr(self, name)
+        if conv_fn is not None:
+            return conv_fn(conv, name, h)
         if not self.weight_bits:
             return conv(h)
         w = fake_quantize_auto(conv.weight, self.weight_bits, per_channel=True, channel_axis=0)
         return F.conv1d(h, w, conv.bias, conv.stride, 1)
 
-    def encode(self, x: torch.Tensor) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    def encode(self, x: torch.Tensor, conv_fn=None) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         """The strided encoder: ``[B, L, 2]`` -> the bottleneck input and
         every level's skip activation, channels-first."""
         check_frame_length(x.shape[1], self.levels)
         h = self._quant_act(as_dtype(x.transpose(1, 2), self.enc1_1.weight.dtype))
         skips = []
         for i in range(self.levels):
-            h = self._layer(f"enc{i+1}_1", h)
-            h = self._layer(f"enc{i+1}_2", h)
+            h = self._layer(f"enc{i+1}_1", h, conv_fn)
+            h = self._layer(f"enc{i+1}_2", h, conv_fn)
             skips.append(h)
         return h, skips
 
-    def decode(self, h: torch.Tensor, skips: List[torch.Tensor]) -> torch.Tensor:
+    def decode(self, h: torch.Tensor, skips: List[torch.Tensor], conv_fn=None) -> torch.Tensor:
         """The bottleneck and the decoder, consuming the skips: -> ``[B, L, 2]``."""
-        h = self._layer("bottle1", h)
-        h = self._layer("bottle2", h)
+        h = self._layer("bottle1", h, conv_fn)
+        h = self._layer("bottle2", h, conv_fn)
         for i in range(self.levels):
-            h = self._layer(f"dec{i+1}_1", upsample_nearest_2x(h))
-            h = self._layer(f"dec{i+1}_2", h)
+            h = self._layer(f"dec{i+1}_1", upsample_nearest_2x(h), conv_fn)
+            h = self._layer(f"dec{i+1}_2", h, conv_fn)
             if i < self.levels - 1:
                 h = self._quant_act(h + skips[self.levels - 2 - i])
-        return torch.tanh(self._conv("final", h)).transpose(1, 2)
+        return torch.tanh(self._conv("final", h, conv_fn)).transpose(1, 2)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.decode(*self.encode(x))
+    def forward(self, x: torch.Tensor, conv_fn=None) -> torch.Tensor:
+        return self.decode(*self.encode(x, conv_fn), conv_fn)
 
 
 class FullDiscriminator(nn.Module):
@@ -145,11 +152,62 @@ class FullDiscriminator(nn.Module):
         nn.init.xavier_uniform_(self.dense.weight)
         nn.init.zeros_(self.dense.bias)
 
-    def forward(self, candidate: torch.Tensor, condition: torch.Tensor) -> torch.Tensor:
+    def forward(self, candidate: torch.Tensor, condition: torch.Tensor, conv_fn=None,
+                pool=None) -> torch.Tensor:
         """``[B, L, 2] x [B, L, 2] -> [B, 1]`` critic score."""
         check_frame_length(candidate.shape[1], self.levels)
         dt = self.conv1.weight.dtype
         h = torch.cat([as_dtype(candidate, dt), as_dtype(condition, dt)], dim=-1).transpose(1, 2)
         for i in range(self.levels):
-            h = F.leaky_relu(getattr(self, f"conv{i+1}")(h), self.leaky_slope)
-        return self.dense(as_dtype(h, torch.float32).sum(dim=-1))
+            conv = getattr(self, f"conv{i+1}")
+            h = F.leaky_relu(conv(h) if conv_fn is None else conv_fn(conv, f"conv{i+1}", h),
+                             self.leaky_slope)
+        pooled = as_dtype(h, torch.float32).sum(dim=-1)
+        return self.dense(pooled if pool is None else pool(pooled))
+
+
+# ------------------------------------------------------------------ sharding
+TP_COLUMN, TP_ROW = 0, 1   # the weight dimension a rule shards: C_out or C_in
+
+
+def _layer_of(name: str) -> str:
+    return name.rsplit(".", 1)[0]
+
+
+def _row_parallel(layer: str) -> bool:
+    return layer.endswith("_2") or layer in ("final", "bottle1", "bottle2")
+
+
+def unet_param_shardings(module: nn.Module, tp: int) -> Dict[str, Optional[int]]:
+    """The tensor-parallel rule over ``tp`` ranks (reference
+    ``full_unet.py:185-215``): each parameter's name -> the dimension of it
+    that is sharded, or ``None`` (replicated). Megatron's alternation:
+    ``*_1`` (and the critic's ``conv*``) kernels are column-parallel, their
+    ``[C_out, C_in, k]`` weight and bias sharded on C_out (``TP_COLUMN``);
+    ``*_2``, ``bottle1``, ``bottle2`` and ``final`` kernels are
+    row-parallel, the weight sharded on C_in (``TP_ROW``) and the bias
+    replicated (their partial outputs are summed over ``tp``); every other
+    parameter, and any whose dimension ``tp`` does not divide, replicated."""
+    spec = {}
+    for name, p in module.named_parameters():
+        layer, leaf = _layer_of(name), name.rsplit(".", 1)[1]
+        dim = None
+        if tp > 1:
+            if layer.endswith("_1") or layer.startswith("conv"):
+                if p.shape[0] % tp == 0:
+                    dim = TP_COLUMN
+            elif _row_parallel(layer) and leaf == "weight" and p.shape[1] % tp == 0:
+                dim = TP_ROW
+        spec[name] = dim
+    return spec
+
+
+def unet_param_shardings_rowparallel(module: nn.Module, tp: int) -> Dict[str, Optional[int]]:
+    """The row-parallel half of ``unet_param_shardings`` alone (reference
+    ``full_unet.py:218-252``): ``*_2``, ``final`` and ``bottle*`` weights
+    sharded on C_in, everything else replicated. The reference keeps it for
+    inference under sequence parallelism; training refuses any tensor
+    sharding under ``sp`` (``parallel/gspmd.py``)."""
+    return {name: (TP_ROW if tp > 1 and name.endswith(".weight") and _row_parallel(_layer_of(name))
+                   and p.shape[1] % tp == 0 else None)
+            for name, p in module.named_parameters()}

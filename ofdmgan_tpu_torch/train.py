@@ -17,6 +17,16 @@ operations under QAT, with ``--residual`` the RTL-residual datapath;
 every run (``--export_dir``, ``--skip_export``), or the export alone of a
 checkpoint (``--export_only --export_checkpoint DIR or G.npz``). Runs on
 the GPU unless ``--device cpu`` (the export alone runs on the host).
+
+Several ranks train together with the reference's flags: ``--strategy``
+(``shard_map``, the explicit data-parallel step over ``--dp`` ranks;
+``gspmd``, the global step over ``--dp`` x ``--tp`` x ``--sp``; ``pp``, the
+GPipe pipeline over ``--pp`` stages with ``--microbatches``). The ranks come
+from ``--local_devices N`` (this launch spawns N ranks on this host: gloo
+with ``--device cpu``), from ``--coordinator host:port --num_processes P
+--process_id I`` (a rendezvous of P launches, each with ``--local_devices``
+ranks or one), or from torchrun's environment; rank 0 alone writes
+checkpoints, metrics and the export.
 Without ``--config`` it uses the defaults of ``config/config.yaml``; with
 it, the YAML file (needs PyYAML).
 """
@@ -109,6 +119,31 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
     p.add_argument("--nan_policy", choices=["restore_best", "raise", "ignore"],
                    default="restore_best")
+    p.add_argument("--dp", type=int, default=None,
+                   help="data-parallel mesh size (0 or unset: every rank)")
+    p.add_argument("--strategy", choices=["shard_map", "gspmd", "pp"], default="shard_map",
+                   help="multi-rank strategy: shard_map = the explicit data-parallel step "
+                        "(default); gspmd = the global step over dp x tp x sp; pp = the GPipe "
+                        "pipeline of the full U-Net's supervised path (--model full "
+                        "--n_critic 0 --adv_weight 0)")
+    p.add_argument("--tp", type=int, default=1,
+                   help="tensor-parallel mesh size (Megatron sharding of the U-Net's "
+                        "kernels; --strategy gspmd --model full)")
+    p.add_argument("--sp", type=int, default=1,
+                   help="sequence-parallel mesh size (frame-length-sharded activations with "
+                        "halo exchanges; --strategy gspmd --model full)")
+    p.add_argument("--pp", type=int, default=0,
+                   help="pipeline stages (the U-Net splits into 2; 0 = min(ranks, 2); "
+                        "--strategy pp)")
+    p.add_argument("--microbatches", type=int, default=8,
+                   help="GPipe microbatches per step for --strategy pp (they divide the batch)")
+    p.add_argument("--coordinator", default=None,
+                   help="rendezvous address host:port of a multi-launch run")
+    p.add_argument("--num_processes", type=int, default=None,
+                   help="launches in the rendezvous")
+    p.add_argument("--process_id", type=int, default=None, help="this launch's index")
+    p.add_argument("--local_devices", type=int, default=None,
+                   help="spawn this many ranks on this host (gloo with --device cpu)")
     return p
 
 
@@ -156,7 +191,10 @@ def config_from_args(args):
 
 def main(argv=None):
     """Train as the flags say; returns the trainer (``None`` with
-    ``--export_only``)."""
+    ``--export_only``; with ``--local_devices``, each spawned rank's
+    ``rank_summary``)."""
+    import os
+
     parser = build_parser()
     args = parser.parse_args(argv)
     check_args(parser, args)
@@ -169,7 +207,48 @@ def main(argv=None):
         export_generator_checkpoint(args.export_checkpoint, cfg.export_dir)
         print("Export complete.")
         return None
+    from .parallel import distributed
 
+    if args.local_devices:
+        return distributed.launch(
+            _train_rank, args.local_devices, (argv,), device=args.device or "cuda",
+            coordinator=args.coordinator, num_processes=args.num_processes,
+            process_id=args.process_id, timeout_s=None)
+    if args.coordinator or args.num_processes or "RANK" in os.environ:
+        device = distributed.initialize(args.coordinator, args.num_processes, args.process_id,
+                                        device=args.device)
+        try:
+            return train(args, cfg, device)
+        finally:
+            distributed.shutdown()
+    return train(args, cfg, args.device)
+
+
+def _train_rank(argv):
+    """One spawned rank of ``--local_devices``: train, then return its
+    ``rank_summary``."""
+    import torch
+
+    args = build_parser().parse_args(argv)
+    device = "cpu" if args.device == "cpu" else torch.device("cuda", torch.cuda.current_device())
+    return rank_summary(train(args, config_from_args(args), device))
+
+
+def rank_summary(trainer) -> dict:
+    """A rank's final state: its rank, whether it wrote the files, both
+    nets' parameters (JAX layout) and the last epoch's logged metrics."""
+    from .parallel import distributed
+    from .utils.jax_params import to_jax_params
+    from .utils.params_io import flatten_tree
+
+    return {"rank": distributed.rank(), "is_main_process": trainer.is_main_process,
+            "params_g": flatten_tree(to_jax_params(trainer.generator)),
+            "params_d": flatten_tree(to_jax_params(trainer.critic)),
+            "history": trainer.history}
+
+
+def train(args, cfg, device):
+    """Build the models and the trainer on ``device`` and train."""
     from .models import count_parameters
     from .training.trainer import Trainer, build_models
     from .utils.params_io import load_params_tree
@@ -180,12 +259,14 @@ def main(argv=None):
     trainer = Trainer(cfg, nonlinear=args.nonlinear,
                       pa_saturation=args.pa_saturation,
                       samples_per_epoch=args.samples_per_epoch, val_samples=args.val_samples,
-                      seed=args.seed, device=args.device, ema_decay=args.ema,
+                      seed=args.seed, device=device, ema_decay=args.ema,
                       image_dir=args.image_dir, image_chunks=args.image_chunks,
                       generator=generator, discriminator=critic,
                       fused_decoder=args.fused_decoder, act_dtype=args.act_dtype,
                       matmul_precision=args.matmul_precision, remat=args.remat,
-                      debug_nans=args.debug_nans)
+                      debug_nans=args.debug_nans, data_parallel=args.dp or 0,
+                      strategy=args.strategy, tensor_parallel=args.tp, seq_parallel=args.sp,
+                      pipeline_parallel=args.pp, microbatches=args.microbatches)
     trainer.nan_policy = args.nan_policy
     print(f"Generator parameters: {count_parameters(trainer.generator):,}")
     print(f"Discriminator parameters: {count_parameters(trainer.critic):,}")

@@ -21,7 +21,22 @@ new best) and ``final_params_g.npz``. After ``final_model/`` a run writes
 the raw generator's FPGA export bundle (not the EMA's, as the reference)
 into ``export_dir/generator/`` (``quant/export.py``: the mini or the full
 U-Net layout), unless the configuration's ``export_after_training`` is
-false. Not ported: data/pipeline parallelism.
+false.
+
+Parallel strategies, with the reference's meanings and checks
+(``trainer.py:282-392``), across the ranks of the process group
+(``parallel/distributed.py``): ``strategy="shard_map"`` is the explicit
+data-parallel step over ``data_parallel`` ranks (``parallel/mesh.py``;
+0 means every rank), taken whenever the process group is initialized, a
+world of one included; ``"gspmd"`` the global step over ``dp`` x
+``tensor_parallel`` x ``seq_parallel`` (``parallel/gspmd.py``); ``"pp"`` the
+GPipe pipeline of the full U-Net's supervised path over
+``pipeline_parallel`` stages with ``microbatches`` microbatches
+(``parallel/pipeline.py``). Every rank holds the full models (under tensor
+parallelism the step trains shards of the generator, gathered back into
+the full one after each epoch, and after each step with an EMA); rank 0
+alone writes checkpoints, the JSONL metrics and the export. Resume and warm
+start load on every rank and place the state under the step's sharding.
 
 The models are the mini pair of the configuration unless the caller
 injects another family (``generator``/``discriminator``, as the reference's
@@ -55,16 +70,20 @@ import torch
 from ..config import Config, datagen_config_from, loss_config_from
 from ..device import resolve_device
 from ..models import FullDiscriminator, FullUNetGenerator, MiniDiscriminator, MiniGenerator
+from ..models.full_unet import unet_param_shardings
 from ..models.generator import FP8_DTYPES, storage_dtype
 from ..models.unet_infer import make_unet_infer_apply
 from ..quant.export import export_any_generator
 from ..utils.jax_params import from_jax_params, to_jax_params
 from ..utils.logging import MetricsLogger
 from ..utils.params_io import load_params_tree, save_params_tree
+from ..parallel import distributed
+from ..parallel.mesh import ShardedTrainStep
 from .schedules import make_adam
 from .wgan_gp import TrainStep, make_eval_step
 
 NAN_POLICIES = ("restore_best", "raise", "ignore")
+STRATEGIES = ("shard_map", "gspmd", "pp")
 # the training metrics the reference logs, under its names (trainer.py:636-640)
 TRAIN_LOG_KEYS = {"d_loss": "d_loss", "g_loss": "g_loss", "wasserstein": "wasserstein_distance",
                   "rec_loss": "rec_loss", "gp": "gradient_penalty"}
@@ -113,14 +132,17 @@ class Trainer:
                  discriminator: Optional[torch.nn.Module] = None,
                  fused_decoder: bool = False, act_dtype=None,
                  matmul_precision: str = "float32", remat: bool = False,
-                 debug_nans: bool = False):
+                 debug_nans: bool = False, data_parallel: int = 0,
+                 strategy: str = "shard_map", tensor_parallel: int = 1,
+                 seq_parallel: int = 1, pipeline_parallel: int = 0, microbatches: int = 8):
         """Runs on the GPU unless ``device`` says otherwise (``"cpu"``).
         ``ema_decay > 0`` keeps an EMA of the generator, updated after every
         outer step; ``image_dir`` trains on image-derived frames
         (``image_chunks``: the chunk dataset) instead of synthetic ones.
         ``generator``/``discriminator`` replace the mini pair built from
         ``seed``; ``fused_decoder`` (a float full U-Net only, float32 or
-        bfloat16 ``act_dtype``) trains through the fused decoder."""
+        bfloat16 ``act_dtype``) trains through the fused decoder. The
+        parallel settings are described in the module's docstring."""
         self.device = resolve_device(device)
         self.config = config or Config()
         tr = self.config.training
@@ -158,15 +180,25 @@ class Trainer:
 
         self.image_dataset = self._image_dataset(image_dir, image_chunks, samples_per_image)
         batch_fn = self.image_dataset.sample_batch if self.image_dataset else None
-        self.step = TrainStep(self.generator, self.critic, None, None, self.dg_cfg,
-                              self.loss_cfg, self.batch_size, batch_fn=batch_fn,
-                              gen_forward=gen_forward, act_dtype=act_dtype,
-                              matmul_precision=matmul_precision, remat=remat)
         self.debug_nans = debug_nans
         self._fresh_optimizers()
+        step_kw = dict(batch_fn=batch_fn, gen_forward=gen_forward, act_dtype=act_dtype,
+                       matmul_precision=matmul_precision, remat=remat)
+        self.mesh = None
+        self.step = self._parallel_step(strategy, data_parallel, tensor_parallel, seq_parallel,
+                                        pipeline_parallel, microbatches, step_kw)
+        if self.step is None:
+            self.step = TrainStep(self.generator, self.critic, self.opt_g, self.opt_d,
+                                  self.dg_cfg, self.loss_cfg, self.batch_size, **step_kw)
+        self.is_main_process = distributed.is_main_process()
         self._eval = make_eval_step(self.generator, self.dg_cfg, self.batch_size, batch_fn)
         self.rng = torch.Generator(device=self.device)
         self.rng.manual_seed(seed + 1)
+        # the data-parallel step draws each step's seed from this host
+        # generator, alike on every rank, and folds in its replica's index
+        self.step_seeds = torch.Generator().manual_seed(seed + 1)
+        self._step_rng = self.step_seeds if self.mesh is not None and \
+            isinstance(self.step, ShardedTrainStep) else self.rng
 
         self.ema_decay = float(ema_decay)
         self.ema_generator: Optional[torch.nn.Module] = None
@@ -203,6 +235,75 @@ class Trainer:
         print(f"Image dataset: {len(ds.image_files)} images from {image_dir}")
         return ds
 
+    def _parallel_step(self, strategy, data_parallel, tensor_parallel, seq_parallel,
+                       pipeline_parallel, microbatches, step_kw):
+        """The step of ``strategy`` over a mesh of the process group's ranks,
+        or ``None`` for the single-process step (reference
+        ``trainer.py:282-392``)."""
+        from ..parallel import (make_gspmd_train_step, make_mesh, make_pp_trainstate_step,
+                                make_sharded_train_step, replicate_state)
+
+        world = distributed.world_size()
+        if strategy == "gspmd":
+            for flag, name in ((step_kw["remat"], "remat"),
+                               (step_kw["batch_fn"] is not None, "image datasets")):
+                if flag:
+                    raise ValueError(f"strategy='gspmd' does not support {name}")
+            if tensor_parallel > 1 and not isinstance(self.generator, FullUNetGenerator):
+                raise ValueError("tensor_parallel > 1 requires the full U-Net family "
+                                 "(--model full): the Megatron sharding rule keys on its "
+                                 "layer names")
+            if tensor_parallel > 1 and seq_parallel > 1:
+                raise ValueError("sp x tp training is disabled, as in the JAX package (an XLA "
+                                 "SPMD conv miscompile there): use dp x sp or dp x tp")
+            if data_parallel == 0:
+                data_parallel = max(1, world // (tensor_parallel * seq_parallel))
+            axes = {"dp": data_parallel}
+            if tensor_parallel > 1:
+                axes["tp"] = tensor_parallel
+            if seq_parallel > 1:
+                axes["sp"] = seq_parallel
+            self.mesh = make_mesh(axes)
+            replicate_state((self.generator, self.critic))
+            return make_gspmd_train_step(
+                self.generator, self.critic, self.opt_g, self.opt_d, self.dg_cfg,
+                self.loss_cfg, self.batch_size, self.mesh,
+                gen_tp_rule=unet_param_shardings if tensor_parallel > 1 else None, **step_kw)
+        if strategy == "pp":
+            for flag, name in ((step_kw["gen_forward"] is not None, "fused_decoder"),
+                               (step_kw["batch_fn"] is not None, "image datasets"),
+                               (step_kw["act_dtype"] is not None, "act_dtype"),
+                               (step_kw["matmul_precision"] != "float32", "matmul_precision")):
+                if flag:
+                    raise ValueError(f"strategy='pp' does not support {name}")
+            if not isinstance(self.generator, FullUNetGenerator):
+                raise ValueError("strategy='pp' requires the full U-Net family (--model full): "
+                                 "the pipeline splits on its encode|decode stage seam")
+            pp = pipeline_parallel if pipeline_parallel > 0 else min(world, 2)
+            self.mesh = make_mesh({"pp": pp})
+            replicate_state((self.generator,))
+            return make_pp_trainstate_step(self.generator, self.opt_g, self.dg_cfg,
+                                           self.loss_cfg, self.batch_size, microbatches,
+                                           self.mesh, remat=step_kw["remat"])
+        if strategy not in STRATEGIES:
+            raise ValueError(f"unknown strategy {strategy!r} (expected one of {STRATEGIES})")
+        if tensor_parallel > 1 or seq_parallel > 1:
+            raise ValueError("tensor_parallel/seq_parallel require strategy='gspmd'")
+        if data_parallel == 0:
+            data_parallel = world
+        if step_kw["remat"] and data_parallel > 1:
+            raise ValueError("remat is wired for the single-device step; drop --remat with dp>1")
+        if not distributed.is_initialized():
+            if data_parallel > 1:
+                raise RuntimeError(f"data_parallel={data_parallel} needs {data_parallel} ranks: "
+                                   "launch with --local_devices, a coordinator or torchrun")
+            return None
+        self.mesh = make_mesh({"dp": data_parallel})
+        replicate_state((self.generator, self.critic))
+        return make_sharded_train_step(self.generator, self.critic, self.opt_g, self.opt_d,
+                                       self.dg_cfg, self.loss_cfg, self.batch_size, self.mesh,
+                                       **step_kw)
+
     def _fresh_optimizers(self) -> None:
         """New Adam states at schedule position 0. StepLR counts optimizer
         updates: G updates once per step, D n_critic times."""
@@ -213,7 +314,15 @@ class Trainer:
                                decay_g, tr.scheduler_gamma)
         self.opt_d = make_adam(self.critic.parameters(), tr.lr_discriminator, tr.betas,
                                decay_d, tr.scheduler_gamma)
-        self.step.opt_g, self.step.opt_d = self.opt_g, self.opt_d
+        if hasattr(self, "step"):
+            self.step.set_optimizers(self.opt_g, self.opt_d)
+
+    def _gather_state(self) -> None:
+        """The step's tensor-sharded generator state back into
+        ``self.generator`` and ``self.opt_g`` (no-op for the other steps)."""
+        gather = getattr(self.step, "gather_into", None)
+        if gather is not None:
+            gather(self.generator, self.opt_g)
 
     # ------------------------------------------------------------- training
     @torch.no_grad()
@@ -230,15 +339,17 @@ class Trainer:
         for i in range(self.steps_per_epoch):
             if self.debug_nans:
                 with torch.autograd.detect_anomaly():
-                    metrics = self.step(self.rng)
+                    metrics = self.step(self._step_rng)
                 bad = [k for k, v in metrics.items() if not bool(torch.isfinite(v))]
                 if bad:
                     raise FloatingPointError(f"non-finite {bad} at step "
                                              f"{self.global_step + i}: {metrics}")
             else:
-                metrics = self.step(self.rng)
+                metrics = self.step(self._step_rng)
             if self.ema_generator is not None:
+                self._gather_state()
                 self.update_ema()
+        self._gather_state()
         self.global_step += self.steps_per_epoch
         return {k: float(v) for k, v in metrics.items()}
 
@@ -265,7 +376,7 @@ class Trainer:
             activities.append(ProfilerActivity.CUDA)
         with profile(activities=activities) as prof:
             for _ in range(n_steps):
-                self.step(self.rng)
+                self.step(self._step_rng)
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         prof.export_chrome_trace(str(trace_dir / "trace.json"))
@@ -273,16 +384,25 @@ class Trainer:
 
     # ---------------------------------------------------------- checkpoints
     def save_champion(self, path: str | Path) -> None:
-        """The generator as a JAX-format ``.npz`` champion."""
-        save_params_tree(str(path), to_jax_params(self.generator))
+        """The generator as a JAX-format ``.npz`` champion (rank 0 writes it)."""
+        if self.is_main_process:
+            save_params_tree(str(path), to_jax_params(self.generator))
 
     def load_champion(self, path: str | Path) -> None:
         self._load_module(self.generator, Path(path))
 
     def save_checkpoint(self, path: str | Path, is_best: bool = False) -> None:
         """The full state into the directory ``path`` (replaced if present);
-        ``is_best`` also copies it to ``best_model/`` beside it."""
+        ``is_best`` also copies it to ``best_model/`` beside it. Rank 0
+        writes; every rank waits for it."""
         path = Path(path)
+        if is_best:
+            self._last_best_path = path.parent / "best_model"
+        if self.is_main_process:
+            self._write_checkpoint(path, is_best)
+        distributed.barrier()
+
+    def _write_checkpoint(self, path: Path, is_best: bool) -> None:
         if path.exists():
             shutil.rmtree(path)
         path.mkdir(parents=True)
@@ -302,7 +422,6 @@ class Trainer:
             if best.exists():
                 shutil.rmtree(best)
             shutil.copytree(path, best)
-            self._last_best_path = best
 
     def _load_module(self, module: torch.nn.Module, path: Path) -> None:
         sd = from_jax_params(load_params_tree(str(path)))
@@ -351,27 +470,32 @@ class Trainer:
         self.current_epoch = sidecar["epoch"]
         self.global_step = sidecar["global_step"]
         self.best_val_loss = sidecar["best_val_loss"]
+        self.step.set_optimizers(self.opt_g, self.opt_d)
 
     # ----------------------------------------------------------------- loop
     def train(self, epochs: Optional[int] = None,
               experiment_name: Optional[str] = None) -> List[Dict[str, float]]:
         """Train and return one record per epoch of the logged train and val
-        metrics; then write the FPGA export unless the configuration's
-        ``export_after_training`` is false."""
+        metrics (kept as ``self.history``); then write the FPGA export unless
+        the configuration's ``export_after_training`` is false."""
         if self.nan_policy not in NAN_POLICIES:
             raise ValueError(f"nan_policy must be one of {NAN_POLICIES}")
         tr = self.config.training
         epochs = epochs or tr.epochs
-        self.logger = MetricsLogger(self.config.log_dir, experiment_name)
+        main = self.is_main_process
+        self.logger = MetricsLogger(self.config.log_dir, experiment_name) if main else None
         ckpt_dir = Path(self.config.checkpoint_dir)
-        ckpt_dir.mkdir(parents=True, exist_ok=True)
+        if main:
+            ckpt_dir.mkdir(parents=True, exist_ok=True)
         history: List[Dict[str, float]] = []
+        mesh = dict(zip(self.mesh.mesh_dim_names, self.mesh.shape)) if self.mesh else None
         print(f"Training for {epochs} epochs | batch {self.batch_size} | "
               f"{self.steps_per_epoch} steps/epoch | n_critic {self.loss_cfg.n_critic} | "
               f"gp {self.loss_cfg.gp_weight} | rec {self.loss_cfg.rec_weight} | "
               f"device {self.device} | datagen {self.step.datagen_route} | "
               f"critic {self.step.critic_route} | "
-              f"precision {self.step.matmul_precision}", flush=True)
+              f"precision {self.step.matmul_precision} | rank {distributed.rank()} of "
+              f"{distributed.world_size()} | mesh {mesh}", flush=True)
         t0 = time.time()
         try:
             for epoch in range(self.current_epoch, epochs):
@@ -392,8 +516,9 @@ class Trainer:
                         break
                 vm = self.validate()
                 logged = {k: tm[m] for k, m in TRAIN_LOG_KEYS.items()}
-                self.logger.log_scalars("train", logged, self.global_step)
-                self.logger.log_scalars("val", vm, epoch)
+                if self.logger:
+                    self.logger.log_scalars("train", logged, self.global_step)
+                    self.logger.log_scalars("val", vm, epoch)
                 history.append({**{f"train/{k}": v for k, v in logged.items()},
                                 **{f"val/{k}": v for k, v in vm.items()}})
                 ema_txt = f" | EMA L1 {vm['rec_loss_ema']:.4f}" if "rec_loss_ema" in vm else ""
@@ -411,11 +536,13 @@ class Trainer:
                     self.save_checkpoint(ckpt_dir / f"checkpoint_epoch_{epoch + 1}", is_best)
             self.save_checkpoint(ckpt_dir / "final_model")
             self.save_champion(ckpt_dir / "final_params_g.npz")
-            if self.config.export_after_training:
+            if self.config.export_after_training and main:
                 export_dir = Path(self.config.export_dir) / "generator"
                 print(f"Exporting weights for FPGA to {export_dir} ...", flush=True)
                 export_any_generator(self.generator, str(export_dir))
         finally:
-            self.logger.close()
+            if self.logger:
+                self.logger.close()
         print(f"Training complete in {time.time() - t0:.1f} s", flush=True)
+        self.history = history
         return history

@@ -65,6 +65,16 @@ backward goes through it). It computes the same function. With the critic
 kernel, the generator's applies and the generator step's critic apply are
 the ones recomputed, as there.
 
+Two settings serve the parallel strategies (``parallel/``):
+``critic_forward(critic, candidate, condition)`` replaces the critic
+module's forward as ``gen_forward`` does the generator's, and ``shard``
+holds this process's part of a step that several processes take together:
+``shard.reduce(module, grads, metrics)`` runs just before each optimizer
+update (the data-parallel mean of the gradients and metrics);
+``shard.frame_sum`` and ``shard.mean`` take the penalty's per-frame sums
+and the L1 term's mean where each process holds a piece of every frame
+(sequence parallelism).
+
 The critic kernel computes the mini critic at ``float32`` or ``bfloat16``
 precision, the latter with the rounding of this step's autograd route (the
 reference's Pallas critic takes ``bfloat16`` too, and refuses the mixed
@@ -130,11 +140,12 @@ def gp_precision(mode: str):
 
 
 def critic_loss_fn(critic: Callable, generator: Callable, batch, alpha: torch.Tensor,
-                   cfg: LossConfig, gp_context=contextlib.nullcontext):
+                   cfg: LossConfig, gp_context=contextlib.nullcontext, frame_sum=None):
     """L_D and its metrics; ``alpha`` ``[B]`` are the penalty's uniforms.
     ``generator`` is the module or any training forward ``noisy -> fake``,
     ``critic`` the module or any apply of it; the penalty runs inside
-    ``gp_context()``."""
+    ``gp_context()``, its per-frame sums through ``frame_sum`` (see
+    ``compute_gradient_penalty``)."""
     noisy, clean = batch["noisy"], batch["clean"]
     with torch.no_grad():
         # stored in the batch's format, as the reference does (wgan_gp.py:108)
@@ -143,7 +154,7 @@ def critic_loss_fn(critic: Callable, generator: Callable, batch, alpha: torch.Te
     d_fake = critic(fake, noisy)
     wasserstein = d_fake.mean() - d_real.mean()
     with gp_context():
-        gp = compute_gradient_penalty(critic, clean, fake, noisy, alpha)
+        gp = compute_gradient_penalty(critic, clean, fake, noisy, alpha, frame_sum)
     # the penalty is summed into the loss in float32 (a bf16 penalty too),
     # as XLA's fused arithmetic does in the reference
     loss = wasserstein + cfg.gp_weight * as_dtype(gp, torch.float32)
@@ -152,8 +163,11 @@ def critic_loss_fn(critic: Callable, generator: Callable, batch, alpha: torch.Te
     return loss, {k: v.detach() for k, v in aux.items()}
 
 
-def generator_loss_fn(generator: Callable, critic: Callable, batch, cfg: LossConfig):
-    """L_G and its metrics; ``n_critic == 0`` skips the critic entirely."""
+def generator_loss_fn(generator: Callable, critic: Callable, batch, cfg: LossConfig,
+                      mean: Callable = torch.mean):
+    """L_G and its metrics; ``n_critic == 0`` skips the critic entirely.
+    ``mean`` takes the L1 term's mean over the frames (a frame split across
+    processes needs a collective)."""
     noisy, clean = batch["noisy"], batch["clean"]
     fake = generator(noisy)
     if cfg.n_critic == 0:
@@ -162,7 +176,7 @@ def generator_loss_fn(generator: Callable, critic: Callable, batch, cfg: LossCon
         adv = -critic(fake, noisy).mean()
     if clean.dtype in FP8_DTYPES:   # fp8 takes part in no promotion
         clean = clean.to(fake.dtype)
-    rec = (fake - clean).abs().mean()
+    rec = mean((fake - clean).abs())
     loss = cfg.adv_weight * adv + cfg.rec_weight * rec
     return loss, {"g_loss": loss.detach(), "adv_loss": adv.detach(), "rec_loss": rec.detach()}
 
@@ -189,15 +203,17 @@ def _recomputed(fn: Callable) -> Callable:
 class TrainStep:
     """One outer step on ``generator``/``critic`` in place; built by
     ``build_train_step``. ``batch_fn(rng, n)`` replaces the synthetic datagen
-    (reference ``wgan_gp.py:279-280``); ``gen_forward``, ``act_dtype``,
-    ``matmul_precision`` and ``remat`` as in the module's docstring."""
+    (reference ``wgan_gp.py:279-280``); ``gen_forward``, ``critic_forward``,
+    ``shard``, ``act_dtype``, ``matmul_precision`` and ``remat`` as in the
+    module's docstring."""
 
     def __init__(self, generator: nn.Module, critic: nn.Module, opt_g: AdamStepLR,
                  opt_d: AdamStepLR, dg_cfg: DatagenConfig, loss_cfg: LossConfig,
                  batch_size: int, reference: bool = False,
                  batch_fn: Optional[Callable[[torch.Generator, int], dict]] = None,
                  gen_forward: Optional[Callable[[nn.Module, torch.Tensor], torch.Tensor]] = None,
-                 act_dtype=None, matmul_precision: str = "float32", remat: bool = False):
+                 act_dtype=None, matmul_precision: str = "float32", remat: bool = False,
+                 critic_forward: Optional[Callable] = None, shard=None):
         if loss_cfg.n_critic == 0 and loss_cfg.adv_weight != 0.0:
             raise ValueError("n_critic=0 (the supervised path) requires adv_weight=0: "
                              "with no critic updates an adversarial generator term "
@@ -205,7 +221,8 @@ class TrainStep:
         if matmul_precision not in MATMUL_PRECISIONS:
             raise ValueError(f"matmul_precision must be one of {MATMUL_PRECISIONS}")
         self.generator, self.critic = generator, critic
-        self.gen_forward = gen_forward
+        self.gen_forward, self.critic_forward = gen_forward, critic_forward
+        self.shard = shard
         self.act_dtype = storage_dtype(act_dtype)
         self.matmul_precision = matmul_precision
         self.remat = remat
@@ -214,6 +231,10 @@ class TrainStep:
         self.batch_size = batch_size
         self.batch_fn = batch_fn
         self.reference = reference
+
+    def set_optimizers(self, opt_g: AdamStepLR, opt_d: AdamStepLR) -> None:
+        """The optimizers the step updates with (a resume or a warm start)."""
+        self.opt_g, self.opt_d = opt_g, opt_d
 
     @property
     def reference(self) -> bool:
@@ -225,7 +246,7 @@ class TrainStep:
         kernel where it covers the configuration."""
         self._reference = bool(value)
         kernel_data = not value and self.batch_fn is None and datagen_kernel.covers(self.dg_cfg)
-        kernel_critic = (not value and self.act_dtype is None
+        kernel_critic = (not value and self.act_dtype is None and self.critic_forward is None
                          and self.matmul_precision in ("float32", "bfloat16")
                          and critic_kernel.covers(self.critic, self.dg_cfg.frame_length))
         self.datagen_route = "kernel" if kernel_data else "plain"
@@ -238,15 +259,21 @@ class TrainStep:
             return datagen_kernel.synthetic_batch(rng, self.batch_size, self.dg_cfg)
         return synthetic_batch(rng, self.batch_size, self.dg_cfg)
 
-    def __call__(self, rng: torch.Generator) -> Dict[str, torch.Tensor]:
-        """Draw the step's batch(es) and penalty uniforms from ``rng``, then run it."""
+    def draw(self, rng: torch.Generator):
+        """The step's draws from ``rng``: the outer batch, the penalty
+        uniforms and, with ``fresh_critic_batches``, the critic batches (else
+        ``None``), as ``run`` takes them."""
         batch0 = self.draw_batch(rng)
         critic_batches, alphas = [], []
         for _ in range(self.loss_cfg.n_critic):
             if self.loss_cfg.fresh_critic_batches:
                 critic_batches.append(self.draw_batch(rng))
             alphas.append(torch.rand((self.batch_size,), generator=rng, device=rng.device))
-        return self.run(batch0, alphas, critic_batches or None)
+        return batch0, alphas, critic_batches or None
+
+    def __call__(self, rng: torch.Generator) -> Dict[str, torch.Tensor]:
+        """Draw the step's batch(es) and penalty uniforms from ``rng``, then run it."""
+        return self.run(*self.draw(rng))
 
     def forward(self, noisy: torch.Tensor) -> torch.Tensor:
         """The generator's training forward."""
@@ -258,7 +285,11 @@ class TrainStep:
 
     def critic_apply(self) -> Callable:
         """The critic as the step applies it."""
-        return _recomputed(self.critic) if self.remat else self.critic
+        if self.critic_forward is None:
+            fwd = self.critic
+        else:
+            fwd = functools.partial(self.critic_forward, self.critic)
+        return _recomputed(fwd) if self.remat else fwd
 
     def critic_update(self, batch, alpha: torch.Tensor) -> Dict[str, torch.Tensor]:
         if self.critic_route == "kernel":
@@ -272,8 +303,11 @@ class TrainStep:
         else:
             gp_context = functools.partial(gp_precision, self.matmul_precision)
             loss, aux = critic_loss_fn(self.critic_apply(), self.forward, batch, alpha,
-                                       self.loss_cfg, gp_context)
+                                       self.loss_cfg, gp_context,
+                                       self.shard.frame_sum if self.shard else None)
             grads = torch.autograd.grad(loss, list(self.critic.parameters()))
+        if self.shard is not None:
+            grads, aux = self.shard.reduce(self.critic, grads, aux)
         _apply_grads(self.critic, self.opt_d, grads)
         return aux
 
@@ -296,9 +330,12 @@ class TrainStep:
             for i, alpha in enumerate(alphas):
                 d_aux = self.critic_update(critic_batches[i] if critic_batches else batch0, alpha)
             g_loss, g_aux = generator_loss_fn(self.forward, self.critic_apply(), batch0,
-                                              self.loss_cfg)
-            _apply_grads(self.generator, self.opt_g,
-                         torch.autograd.grad(g_loss, list(self.generator.parameters())))
+                                              self.loss_cfg,
+                                              self.shard.mean if self.shard else torch.mean)
+            g_grads = torch.autograd.grad(g_loss, list(self.generator.parameters()))
+            if self.shard is not None:
+                g_grads, g_aux = self.shard.reduce(self.generator, g_grads, g_aux)
+            _apply_grads(self.generator, self.opt_g, g_grads)
         return {**d_aux, **g_aux}
 
 

@@ -42,6 +42,13 @@ never when resident; the ``bfloat16`` mode's critic forward within rtol
 intermediate activation straddles a bf16 step (at most 1 in 1,000 scores,
 within one bf16 step of the scale); a ``--remat`` mini
 step equals the plain step within 1e-6 of each tensor's largest update.
+Parallelism: the data-parallel mini step on a world of one over NCCL equals
+the plain step bit for bit (a mean over one rank is exact), with one
+datagen and five critic launches a step; two ranks sharing the card over
+gloo stay bit for bit in lockstep and take, from a warmed-up state, a step
+within 1e-3 of each tensor's largest update of one process's step on both
+ranks' draws. Asking for NCCL without a GPU raises (this one runs on the
+CPU too).
 """
 
 import copy
@@ -56,6 +63,9 @@ from ofdmgan_tpu_torch.ops import datagen_kernel as dk
 from ofdmgan_tpu_torch.signal import datagen as sdg
 from ofdmgan_tpu_torch.signal.impairments import ImpairmentConfig
 from ofdmgan_tpu_torch.training.schedules import make_adam
+from ofdmgan_tpu_torch.parallel import distributed
+from ofdmgan_tpu_torch.parallel.mesh import draw_seed, make_mesh, make_sharded_train_step
+from ofdmgan_tpu_torch.parallel.mesh import replica_generator
 from ofdmgan_tpu_torch.training.wgan_gp import LossConfig, TrainStep, critic_loss_fn
 
 pytestmark = pytest.mark.cuda
@@ -591,3 +601,105 @@ def test_a_remat_step_on_the_card_equals_the_plain_step(cuda):
     for p0, a, b in zip(start, plain, remat):
         assert float((b - a).abs().max()) <= 1e-6 * float((a - p0).abs().max())
 
+
+
+def _mini_pair(dev, batch, mesh=None):
+    """The mini pair from seed 0 on ``dev``: a data-parallel step over
+    ``mesh`` (else a plain step) at global ``batch``."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        g, d = MiniGenerator().to(dev), MiniDiscriminator().to(dev)
+    args = (g, d, make_adam(g.parameters(), 2e-4, (0.0, 0.9)),
+            make_adam(d.parameters(), 2e-4, (0.0, 0.9)), sdg.DatagenConfig(), LossConfig())
+    if mesh is None:
+        return TrainStep(*args, batch)
+    return make_sharded_train_step(*args, batch, mesh)
+
+
+def _params(step):
+    return [p.detach() for p in [*step.generator.parameters(), *step.critic.parameters()]]
+
+
+def _world_of_one_rank() -> dict:
+    dev = torch.device("cuda", torch.cuda.current_device())
+    torch.backends.cudnn.deterministic = True
+    dp, plain = _mini_pair(dev, 64, make_mesh({"dp": 1})), _mini_pair(dev, 64)
+    seeds_dp, seeds_plain = torch.Generator().manual_seed(3), torch.Generator().manual_seed(3)
+    equal = []
+    for _ in range(4):
+        m_dp = dp(seeds_dp)
+        m_plain = plain(replica_generator(draw_seed(seeds_plain), 0, dev))
+        equal.append(all(torch.equal(a, b) for a, b in zip(_params(dp), _params(plain)))
+                     and all(torch.equal(m_dp[k], m_plain[k]) for k in m_plain))
+    return {"backend": torch.distributed.get_backend(), "equal": equal,
+            "routes": (dp.datagen_route, dp.critic_route)}
+
+
+def test_data_parallel_world_of_one_over_nccl_equals_the_plain_step(cuda):
+    out = distributed.launch(_world_of_one_rank, 1, device="cuda:0")[0]
+    assert out["backend"] == "nccl" and out["routes"] == ("kernel", "kernel")
+    assert all(out["equal"]), out["equal"]
+
+
+def _launch_counts_rank() -> dict:
+    dev = torch.device("cuda", torch.cuda.current_device())
+    dp = _mini_pair(dev, 64, make_mesh({"dp": 1}))
+    seeds = torch.Generator().manual_seed(4)
+    dk.launches = ck.launches = 0
+    for _ in range(3):
+        dp(seeds)
+    return {"datagen": dk.launches, "critic_grad": ck.launches}
+
+
+def test_data_parallel_step_launches_one_datagen_and_five_critic_kernels(cuda):
+    out = distributed.launch(_launch_counts_rank, 1, device="cuda:0")[0]
+    assert out == {"datagen": 3, "critic_grad": 15}
+
+
+def _two_ranks_rank(batch: int) -> dict:
+    dev = torch.device("cuda", torch.cuda.current_device())
+    torch.backends.cudnn.deterministic = True
+    dp = _mini_pair(dev, batch, make_mesh({"dp": 2}))
+    seeds = torch.Generator().manual_seed(5)
+    lockstep = []
+    dk.launches = ck.launches = 0
+    for _ in range(4):
+        dp(seeds)
+        flat = torch.cat([p.reshape(-1) for p in _params(dp)])
+        lockstep.append(torch.equal(flat, distributed.broadcast(flat.clone(), 0)))
+    launches = (dk.launches, ck.launches)
+    single = _mini_pair(dev, batch)
+    for mine, theirs in zip(_params(single), _params(dp)):
+        mine.copy_(theirs)
+    for src, dst in ((dp.opt_g, single.opt_g), (dp.opt_d, single.opt_d)):
+        dst.opt.load_state_dict(copy.deepcopy(src.opt.state_dict()))
+    start = [p.clone() for p in _params(dp)]
+    probe = torch.Generator()
+    probe.set_state(seeds.get_state())
+    seed = draw_seed(probe)
+    dp(seeds)
+    parts = [dp.step.draw(replica_generator(seed, i, dev)) for i in range(2)]
+    batch0 = {k: torch.cat([p[0][k] for p in parts]) for k in parts[0][0]}
+    alphas = [torch.cat([p[1][j] for p in parts]) for j in range(5)]
+    single.run(batch0, alphas)
+    rel = max(float((a - b).abs().max()) / max(float((b - p0).abs().max()), 1e-12)
+              for p0, a, b in zip(start, _params(dp), _params(single)))
+    return {"lockstep": lockstep, "launches": launches, "rel": rel}
+
+
+def test_two_ranks_share_the_card_over_gloo_in_lockstep(cuda):
+    out = distributed.launch(_two_ranks_rank, 2, (16,), device="cuda:0", backend="gloo")
+    for r in out:
+        assert all(r["lockstep"]), r["lockstep"]
+        assert r["launches"] == (4, 20)
+        assert r["rel"] <= 1e-3, r["rel"]
+
+
+def test_nccl_without_a_gpu_raises(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present")
+    with pytest.raises(RuntimeError, match="NCCL needs a CUDA device"):
+        distributed.backend_for(torch.device("cuda"))
+    with pytest.raises(RuntimeError, match="NCCL needs a CUDA device"):
+        distributed.initialize(f"file://{tmp_path}/store", device="cuda")
+    assert not distributed.is_initialized()

@@ -50,7 +50,10 @@ MODULES = ("ofdmgan_tpu_torch.signal.channel", "ofdmgan_tpu_torch.signal.image_o
            "ofdmgan_tpu_torch.viz", "ofdmgan_tpu_torch.viz.signal_viz",
            "ofdmgan_tpu_torch.viz.image_transmission", "ofdmgan_tpu_torch.viz.diagrams",
            "ofdmgan_tpu_torch.distributional_figure", "ofdmgan_tpu_torch.cross_channel_matrix",
-           "ofdmgan_tpu_torch.utils.torch_port", "ofdmgan_tpu_torch.model_selftest")
+           "ofdmgan_tpu_torch.utils.torch_port", "ofdmgan_tpu_torch.model_selftest",
+           "ofdmgan_tpu_torch.parallel", "ofdmgan_tpu_torch.parallel.mesh",
+           "ofdmgan_tpu_torch.parallel.distributed", "ofdmgan_tpu_torch.parallel.gspmd",
+           "ofdmgan_tpu_torch.parallel.pipeline", "ofdmgan_tpu_torch.dryrun")
 
 IMPORT_ALL = f"""
 import sys
@@ -81,7 +84,7 @@ def test_every_module_imports_without_jax_yaml_or_the_jax_package():
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     lines = out.stdout.strip().splitlines()
-    assert int(lines[-1]) >= 58
+    assert int(lines[-1]) >= 64
     assert set(MODULES) <= set(lines[-2].split())
 
 
@@ -110,8 +113,8 @@ def test_entry_points_raise_without_a_gpu(tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a GPU is present")
     from ofdmgan_tpu_torch import (bench_infer, cross_channel_matrix, distributional_figure,
-                                   export_serving, make_rtl_handoff, model_selftest, selfcheck,
-                                   vcd_crosscheck)
+                                   dryrun, export_serving, make_rtl_handoff, model_selftest,
+                                   selfcheck, vcd_crosscheck)
     from ofdmgan_tpu_torch import train as train_cli
     from ofdmgan_tpu_torch.device import resolve_device
     from ofdmgan_tpu_torch.simplegan import train_cli as simplegan_cli
@@ -121,6 +124,10 @@ def test_entry_points_raise_without_a_gpu(tmp_path):
     out = str(tmp_path)
     for call in (resolve_device, Trainer,
                  lambda: train_cli.main(["--checkpoint_dir", out]),
+                 lambda: train_cli.main(["--checkpoint_dir", out, "--dp", "2"]),
+                 lambda: train_cli.main(["--checkpoint_dir", out, "--strategy", "gspmd",
+                                         "--model", "full", "--tp", "2"]),
+                 dryrun.entry,
                  lambda: make_rtl_handoff.main(["--out_dir", out, "--rom_file", f"{out}/r.v"]),
                  lambda: simplegan_cli.main(["--steps", "2", "--output_dir", out]),
                  lambda: selfcheck.main([]),
