@@ -4,7 +4,12 @@
 Builds the port's CUDA kernels from ``ofdmgan_tpu_torch/csrc``, holds each
 against its plain PyTorch version on the card, trains the mini CWGAN-GP for
 two short epochs through both kernels with ``Trainer``, and checks that the
-kernel path and the plain path take the same step. Phase ``train_scope``
+kernel path and the plain path take the same step. A mini trainer on the
+card runs its second epoch as one CUDA graph replay (``training/
+chunks.py``); a replay calls no wrapper, so wherever a trainer runs, its
+launches are the wrappers' counts plus the kernels each replay ran,
+counted by name from that replay's profiler trace (``counted_launches``),
+and every such run is held to its exact count. Phase ``train_scope``
 then trains a configuration outside the datagen kernel's scope (multipath
 channel, every default impairment, an EMA, a checkpoint each epoch) and
 checks that it takes the FFT datagen and the critic kernel, that a trainer
@@ -64,8 +69,29 @@ at full width under gspmd ``{dp: 2}``, ``{dp: 1, tp: 2}``, ``{dp: 1, sp:
 2}`` and the ``pp = 2`` pipeline (supervised, 8 microbatches), each rank
 resuming from one warmed-up checkpoint, and holds each layout's step against
 the single-device step on the same global draws (the datagen kernel's);
-then times each leg. Every phase prints one JSON line with its wall seconds as
-it ends. Any failed check raises, and the
+then times each leg. Phase ``layout`` runs the TPU layout variants: leg a
+trains the mini recipe 2 x 20 steps through the flat ``[B, F]`` step
+(``--flat``) and both kernels, in graphed chunks, and holds one flat step
+against the module step; leg b runs the reference bench's headline flags
+(``--flat --premap --conv_expand onehot --mm tf32x3_gp --act_dtype
+bfloat16 --matmul_precision bf16_tf32gp --critic_unroll 5 --prng rbg``) at
+batch 65,536, two chunks of 32 steps through the datagen kernel (the
+first eager, the second a graph replay), times replayed chunks, eager
+steps and the eager steps as a trainer without graphs runs them (its
+schedule on the host, Adam not capturable), holds one step on the card
+against the same step on the CPU
+from one state and CPU-made draws, with a control (the same step with
+Hopper TF32 in the penalty chain in place of the bf16x3 products) that
+must fail that gate, and holds the flat critic's ``tf32_matmul`` scores
+and penalty gradients on the card against the CPU; leg c takes the mini
+default's chunk of 26 steps, captures it, and holds one replay against the
+same chunk run eagerly from the same state and generator state, checks
+that a second replay from that state repeats it and that a replay after
+the generator moved on draws other batches, counts the launches of a
+replay from its trace (and checks that neither the capture nor the replay
+moved a wrapper's count), and times and profiles a replayed chunk, the
+eager chunk and the eager chunk as a trainer without graphs runs it. Every phase
+prints one JSON line with its wall seconds as it ends. Any failed check raises, and the
 script exits non-zero. The last lines are the kernel table, the card's name
 and power limit, and the result line.
 
@@ -198,11 +224,36 @@ where two ranks at the single-device step's peak fit 90 % of the card, else
 256 (printed with its reason); its times are host clocks around
 PAR_TIMED_STEPS steps ending in a synchronize, with each rank's peak memory
 and the bytes through collectives a step (``staged_bytes``: the CUDA
-payloads gloo takes through host memory).
+payloads gloo takes through host memory). Phase ``layout``: the flat step
+against the module step from one state and one batch within STEP_RTOL of
+each tensor's largest update, as the kernel and plain steps (the flat
+generator's matmuls and the module's convolutions sum in another order;
+9.0e-6 on an H100); the headline step on the card against the CPU, from
+the state the run left, within LAYOUT_CPU_FACTOR, 2, times the floor
+measured beside it, of each tensor's largest update, deterministic cuDNN.
+The floor is the CPU step from every parameter one float32 ulp up against
+the CPU step: the bf16 step turns any float32-level difference (here the
+card's other summation order) into bf16 roundings that land apart, and its
+five critic updates, Adam-normalized, carry them on, so how far such a
+difference moves it depends on the state: on an H100 the card read 0.85,
+0.67 and 0.58 of the floor after 64, 160 and 288 steps (1.1e-3, 8.7e-3,
+2.3e-2 of each tensor's largest update). The control must lie beyond the
+same limit (0.23 to 0.37);
+``tf32_matmul``'s scores and penalty gradients within LAYOUT_TF32_RTOL,
+1e-3, of each tensor's largest entry (measured 1.4e-7 and 2.2e-5); the
+replayed chunk against the eager chunk within GRAPH_RTOL, 1e-6, of each
+tensor's largest update over the chunk (the same kernels on the same
+inputs: measured 0), the second replay equal to the first; launches exact
+in every leg. All on an H100 (NVIDIA H100 80GB HBM3, 700.00 W). Its times
+are host clocks ending in a synchronize, each call timed alone after one
+untimed call, given as the median of LAYOUT_TIMED_RUNS calls with their
+spread: chunks of 26 steps at batch 64, chunks of 32 or calls of
+LAYOUT_EAGER_STEPS eager steps at 65,536.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -281,6 +332,22 @@ PAR_LAYOUTS = {"dp2": dict(strategy="gspmd", data_parallel=2),
                "tp2": dict(strategy="gspmd", data_parallel=1, tensor_parallel=2),
                "sp2": dict(strategy="gspmd", data_parallel=1, seq_parallel=2),
                "pp2": dict(strategy="pp", pipeline_parallel=2, microbatches=8)}
+LAYOUT_STEPS = 20          # layout, leg a: flat mini steps per epoch (two epochs)
+LAYOUT_B = 65536           # layout, leg b: the reference bench's headline batch (bench.py:139)
+LAYOUT_SCAN = 32           # layout, leg b: its chunk; two chunks
+LAYOUT_HEADLINE = dict(flat_step=True, premap=True, conv_expand="onehot", mm="tf32x3_gp",
+                       act_dtype="bfloat16", matmul_precision="bf16_tf32gp", critic_unroll=5,
+                       prng="rbg")   # bench.py's defaults (bench.py:139-264)
+LAYOUT_CPU_FACTOR = 2.0    # layout, leg b: the headline step, card against CPU, of each
+                           # tensor's largest update, over the floor measured beside it
+                           # (see the docstring)
+LAYOUT_TF32_RTOL = 1e-3    # layout, leg b: tf32_matmul's forward and the penalty's parameter
+                           # gradients, card against CPU, of each tensor's largest entry
+LAYOUT_CHUNK = 26          # layout, leg c: the default configuration's chunk (156 steps an epoch)
+LAYOUT_EAGER_STEPS = 4     # layout, leg b: outer steps a timed eager call
+LAYOUT_TIMED_RUNS = 3      # layout, legs b and c: timed calls of each form, after a warm one
+GRAPH_RTOL = 1e-6          # layout, leg c: a replayed chunk against the eager chunk, of each
+                           # tensor's largest update over the chunk (deterministic cuDNN)
 
 
 def log(phase: str, t0: float, **fields) -> None:
@@ -457,21 +524,23 @@ def updates_agree(start: dict, a: dict, b: dict, rtol, what: str) -> tuple:
     return worst_abs, worst_rel
 
 
-def clone_step(trainer, reference: bool, gen_forward=None):
+def clone_step(trainer, reference: bool, gen_forward=None, device=None, **step_kw):
     """A ``TrainStep`` on deep copies of ``trainer``'s models and Adam states
-    (and StepLR positions): ``reference`` selects the reference step,
-    ``gen_forward`` the training forward."""
+    (and StepLR positions, held on the host), on ``device`` (default: the
+    trainer's): ``reference`` selects the reference step, ``gen_forward``
+    the training forward, ``step_kw`` the step's other settings."""
     from ofdmgan_tpu_torch.training.schedules import make_adam
     from ofdmgan_tpu_torch.training.wgan_gp import TrainStep
     g, d = copy.deepcopy(trainer.generator), copy.deepcopy(trainer.critic)
+    if device is not None:
+        g, d = g.to(device), d.to(device)
     tr = trainer.config.training
     opt_g = make_adam(g.parameters(), tr.lr_generator, tr.betas, 1)
     opt_d = make_adam(d.parameters(), tr.lr_discriminator, tr.betas, 1)
     for new, old in ((opt_g, trainer.opt_g), (opt_d, trainer.opt_d)):
-        new.opt.load_state_dict(copy.deepcopy(old.opt.state_dict()))
-        new.sched.load_state_dict(old.sched.state_dict())
+        new.load_state_dict(*copy.deepcopy(old.state_dict()))
     return TrainStep(g, d, opt_g, opt_d, trainer.dg_cfg, trainer.loss_cfg, trainer.batch_size,
-                     reference=reference, gen_forward=gen_forward)
+                     reference=reference, gen_forward=gen_forward, **step_kw)
 
 
 def all_params(model) -> dict:
@@ -494,28 +563,109 @@ def timed_steps(step, rng, n: int = 5, warmup: int = 2) -> tuple[float, int]:
     return (time.perf_counter() - t) / n * 1e3, torch.cuda.max_memory_allocated()
 
 
+TRACE_SENTINELS = 32   # Box-Muller launches that open a traced window (see replay_launches)
+# the port's kernels by the names the profiler gives them (csrc/*.cu); the
+# critic wrapper launches the per-block kernel and its sum together
+TRACED_KERNELS = {"datagen": "datagen_kernel", "critic_grad": "critic_grad_kernel",
+                  "critic_grad_sum": "critic_grad_sum_kernel"}
+
+
+def replay_launches(fn) -> tuple:
+    """``(fn(), launches)``: one call of ``fn`` (a graph replay, which calls
+    no wrapper and so moves no launch count) under ``torch.profiler``, and
+    the port's kernels that ran on the device in it, counted by name from
+    the trace (``TRACED_KERNELS``). The trace's first step runs one small
+    kernel and is dropped: the profiler misses the first kernel of a trace.
+    The traced window can also lose its leading records (on an H100, the
+    first 1 to 4 kernels of a replay in some calls, whole steps in others),
+    so it opens with TRACE_SENTINELS launches of the datagen module's
+    Box-Muller kernel, a name no step runs, before ``fn``: the count stands
+    only where a sentinel is left in the trace, and raises otherwise."""
+    import re
+
+    from ofdmgan_tpu_torch.ops import datagen_kernel as dk
+    from torch.profiler import ProfilerActivity, profile, schedule
+    probe = torch.zeros(1, device="cuda")
+    bits = torch.zeros((1, 2), dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        probe.add_(1)
+        torch.cuda.synchronize()
+        prof.step()
+        for _ in range(TRACE_SENTINELS):
+            dk.box_muller(bits)
+        torch.cuda.synchronize()
+        out = fn()
+        torch.cuda.synchronize()
+        prof.step()
+    events = [e for e in prof.key_averages() if e.device_type != torch.autograd.DeviceType.CPU]
+    count = lambda name: sum(e.count for e in events if re.search(rf"\b{name}\b", e.key))  # noqa: E731
+    if not count("box_muller_kernel"):
+        raise RuntimeError(f"the trace lost all {TRACE_SENTINELS} sentinel launches: "
+                           "its count of the replay's launches may be short")
+    counts = {k: count(name) for k, name in TRACED_KERNELS.items()}
+    if counts["critic_grad_sum"] != counts["critic_grad"]:
+        raise AssertionError(f"a replay ran the critic's kernels unpaired: {counts}")
+    return out, {k: counts[k] for k in ("datagen", "critic_grad")}
+
+
+@contextlib.contextmanager
+def counted_launches(trainer=None):
+    """The launches of a run of the main path: sets both wrappers' counts
+    to 0 and, while ``trainer`` (if given) replays graphed chunks, counts
+    each replay's launches from its trace (``replay_launches``). Yields a
+    dict that holds, after the block, ``datagen`` and ``critic_grad``: the
+    launches the wrappers ran plus those the replays ran; ``replays`` and
+    ``replayed`` (the replays' share)."""
+    from ofdmgan_tpu_torch.ops import critic_kernel as ck, datagen_kernel as dk
+    dk.launches = 0
+    ck.launches = 0
+    out = {"replays": 0, "replayed": {"datagen": 0, "critic_grad": 0}}
+    chunk = trainer.chunk if trainer is not None and trainer.graphed else None
+    if chunk is not None:
+        replay = chunk.replay
+
+        def traced():
+            metrics, n = replay_launches(replay)
+            out["replays"] += 1
+            for k, v in n.items():
+                out["replayed"][k] += v
+            return metrics
+
+        chunk.replay = traced
+    try:
+        yield out
+    finally:
+        if chunk is not None:
+            del chunk.replay
+    out.update(datagen=dk.launches + out["replayed"]["datagen"],
+               critic_grad=ck.launches + out["replayed"]["critic_grad"])
+
+
 def trained(trainer, name: str, want_routes: dict, want_launches: dict,
             keys=TRAIN_LOG_KEYS) -> dict:
-    """Train ``trainer`` two epochs with every launch count set to 0 first;
-    check its routes, its launch counts and that its metrics are finite
-    under the log ``keys``. Returns the run's fields."""
-    from ofdmgan_tpu_torch.ops import critic_kernel as ck, datagen_kernel as dk
+    """Train ``trainer`` two epochs, its launches counted
+    (``counted_launches``); check its routes, its launch counts and that
+    its metrics are finite under the log ``keys``. Returns the run's
+    fields."""
     routes = {"datagen": trainer.step.datagen_route, "critic": trainer.step.critic_route}
     if routes != want_routes:
         raise AssertionError(f"the {name} run took the routes {routes}")
-    dk.launches = 0
-    ck.launches = 0
     t_train = time.time()
-    history = trainer.train(epochs=2, experiment_name=f"chip_smoke_{name}")
-    torch.cuda.synchronize()
+    with counted_launches(trainer) as counted:
+        history = trainer.train(epochs=2, experiment_name=f"chip_smoke_{name}")
+        torch.cuda.synchronize()
     train_s = time.time() - t_train
-    launches = {"datagen": dk.launches, "critic_grad": ck.launches}
+    launches = {"datagen": counted["datagen"], "critic_grad": counted["critic_grad"]}
     if launches != want_launches:
-        raise AssertionError(f"the {name} run launched {launches}, not {want_launches}")
+        raise AssertionError(f"the {name} run launched {launches} ({counted['replayed']} in "
+                             f"{counted['replays']} replays), not {want_launches}")
     if (len(history) != 2 or any(set(rec) != keys for rec in history)
             or not all(math.isfinite(v) for rec in history for v in rec.values())):
         raise AssertionError(f"non-finite or missing {name} training metrics: {history}")
-    return {"routes": routes, "launches": launches, "train_s": round(train_s, 3),
+    return {"routes": routes, "launches": launches, "replays": counted["replays"],
+            "replayed_launches": counted["replayed"], "train_s": round(train_s, 3),
             "history": history}
 
 
@@ -2092,6 +2242,286 @@ def parallel_phase(dev) -> dict:
     return out
 
 
+def _train_state(trainer) -> dict:
+    """Every tensor a chunk updates in place: both nets' parameters, both
+    Adam states, the device rates and update counts; by name."""
+    out = {f"p.{n}": p for n, p in all_params(trainer).items()}
+    for tag, opt in (("g", trainer.opt_g), ("d", trainer.opt_d)):
+        for i, st in enumerate(opt.opt.state.values()):
+            out.update({f"{tag}.{i}.{k}": v for k, v in st.items()})
+        out[f"{tag}.lr"], out[f"{tag}.count"] = opt.opt.param_groups[0]["lr"], opt.count
+    return out
+
+
+def _snapshot(trainer) -> tuple:
+    return ({k: v.detach().clone() for k, v in _train_state(trainer).items()},
+            trainer.rng.get_state())
+
+
+def _restore(trainer, snap, rng: bool = True) -> None:
+    """Copy a snapshot back in place (a graph keeps reading the same
+    tensors); ``rng`` also restores the generator's state."""
+    tensors, rng_state = snap
+    with torch.no_grad():
+        for k, v in _train_state(trainer).items():
+            v.copy_(tensors[k])
+    if rng:
+        trainer.rng.set_state(rng_state)
+
+
+def _chunk_profile(fn) -> dict:
+    """ATen calls, kernel launches from the host, graph launches and
+    kernels run on the device in one call of ``fn`` (``torch.profiler``)."""
+    events = profiled(fn, 1)
+    count = lambda keys: sum(e.count for e in events if e.key in keys)  # noqa: E731
+    return {"aten_calls": sum(e.count for e in events if e.key.startswith("aten::")),
+            "host_kernel_launches": count({"cudaLaunchKernel", "cuLaunchKernel",
+                                           "cudaLaunchKernelExC", "cuLaunchKernelEx"}),
+            "graph_launches": count({"cudaGraphLaunch", "cuGraphLaunch"}),
+            "device_kernels": sum(e.count for e in events
+                                  if e.device_type != torch.autograd.DeviceType.CPU
+                                  and device_us(e) > 0)}
+
+
+def ms_per_step_runs(fn, steps: int, runs: int = LAYOUT_TIMED_RUNS) -> dict:
+    """Host ms per outer step of ``fn`` (``steps`` outer steps a call),
+    each of ``runs`` calls timed alone, ending in a synchronize, after one
+    untimed call: their median and spread."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) / steps * 1e3)
+    return {"median": statistics.median(times), "min": min(times), "max": max(times),
+            "runs": runs}
+
+
+def _layout_cfg(name: str, **training):
+    from ofdmgan_tpu_torch.config import Config
+    base = Config(checkpoint_dir=f"build/chip_smoke/layout/{name}/checkpoints",
+                  log_dir=f"build/chip_smoke/layout/{name}/logs", export_after_training=False)
+    return dataclasses.replace(base, training=dataclasses.replace(base.training, **training))
+
+
+def _grads_rel(a: dict, b: dict) -> float:
+    """The largest difference of any tensor over its largest entry in ``b``."""
+    return max(float((a[k] - b[k]).abs().max() / b[k].abs().max().clamp_min(1e-30)) for k in b)
+
+
+def layout_phase(dev, gen) -> dict:
+    """Phase ``layout``: the TPU layout variants. Leg a trains the mini
+    default recipe through the flat step (both kernels) and holds one flat
+    step against the module step; leg b runs the reference bench's headline
+    flags at batch 65,536 (two graphed chunks of 32 steps through the
+    datagen kernel), holds one step and ``tf32_matmul`` on the card against
+    the CPU, and shows that the step with Hopper TF32 in the penalty chain
+    fails that gate; leg c holds a replayed chunk of 26 steps against the
+    same chunk run eagerly, shows that replays draw fresh batches, checks
+    the launch counts under replay and times both. The measured gates are
+    checked after every leg has run, so that the phase line carries all
+    the numbers when one fails. Returns the phase line's fields."""
+    from ofdmgan_tpu_torch.models.flat import make_critic_flat_apply, make_flat_step
+    from ofdmgan_tpu_torch.models.critic import compute_gradient_penalty
+    from ofdmgan_tpu_torch.ops import datagen_kernel as dk
+    from ofdmgan_tpu_torch.signal import datagen as sdg
+    from ofdmgan_tpu_torch.training.chunks import EagerChunk
+    from ofdmgan_tpu_torch.training.trainer import Trainer
+
+    out, failed = {}, []
+
+    def gate(what: str, value: float, limit: float, beyond: bool = False) -> float:
+        if not (value > limit if beyond else value <= limit):   # so that a NaN fails
+            failed.append(f"{what}: {value:.3e} {'within' if beyond else 'beyond'} {limit:.1e}")
+        return value
+
+    # ---- a: the mini default recipe with --flat, both kernels, graphed chunks
+    t = time.time()
+    cfg = _layout_cfg("flat")
+    trainer = Trainer(cfg, samples_per_epoch=LAYOUT_STEPS * MAIN_B, val_samples=256, seed=0,
+                      device=dev, flat_step=True)
+    leg = trained(trainer, "layout_flat", {"datagen": "kernel", "critic": "kernel"},
+                  {"datagen": 2 * LAYOUT_STEPS, "critic_grad": 10 * LAYOUT_STEPS})
+    draws = sdg.make_draws(gen, MAIN_B, 16)
+    alphas = [torch.rand(MAIN_B, generator=gen, device=dev) for _ in range(5)]
+    batch = dk.synthetic_batch_from_draws(draws, trainer.dg_cfg)
+    steps = {"flat": clone_step(trainer, False, flat=trainer.step.flat),
+             "module": clone_step(trainer, False)}
+    start = {n: p.detach().clone() for n, p in all_params(steps["flat"]).items()}
+    for st in steps.values():
+        _deterministic(lambda: st.run(batch, alphas))
+    leg["flat_vs_module_max_rel_diff"] = gate("flat against module step", updates_agree(
+        start, all_params(steps["flat"]), all_params(steps["module"]), None, "")[1], STEP_RTOL)
+    leg["graphed"], leg["scan_steps"] = trainer.graphed, trainer.scan_steps
+    leg["seconds"] = round(time.time() - t, 3)
+    out["a_flat"] = leg
+    del trainer, steps
+
+    # ---- b: the headline flags at batch 65,536, two graphed chunks of 32
+    t = time.time()
+    cfg = _layout_cfg("headline", batch_size=LAYOUT_B)
+    trainer = Trainer(cfg, samples_per_epoch=2 * LAYOUT_SCAN * LAYOUT_B, val_samples=LAYOUT_B,
+                      seed=0, device=dev, scan_steps=LAYOUT_SCAN, **LAYOUT_HEADLINE)
+    routes = {"datagen": trainer.step.datagen_route, "critic": trainer.step.critic_route}
+    if routes != {"datagen": "kernel", "critic": "plain"} or not trainer.graphed:
+        raise AssertionError(f"the headline run took {routes}, graphed {trainer.graphed}")
+    torch.cuda.reset_peak_memory_stats()
+    t_run = time.time()
+    with counted_launches(trainer) as counted:
+        metrics = trainer.train_epoch()
+        torch.cuda.synchronize()
+    leg = {"routes": routes, "run_s": round(time.time() - t_run, 3), "metrics": metrics,
+           "launches": {k: counted[k] for k in ("datagen", "critic_grad")},
+           "replays": counted["replays"], "replayed_launches": counted["replayed"]}
+    if leg["launches"] != {"datagen": 2 * LAYOUT_SCAN, "critic_grad": 0} or leg["replays"] != 1:
+        raise AssertionError(f"the headline run launched {leg['launches']} "
+                             f"({leg['replayed_launches']} in {leg['replays']} replays)")
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"non-finite headline metrics: {metrics}")
+    leg["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+    kw = dict(act_dtype=trainer.step.act_dtype, matmul_precision=trainer.step.matmul_precision)
+    # one step from the state the run left, on one set of draws (made on
+    # the CPU): the headline on the card and on the CPU, on the CPU from
+    # parameters one float32 ulp up (the floor: how far a float32-level
+    # difference moves this bf16 step in this state), and on the card the
+    # control with Hopper TF32 in the penalty chain (mm ambient:
+    # bf16_tf32gp's context) in place of the bf16x3 products
+    cpu_gen = torch.Generator().manual_seed(PAR_SEED)
+    draws = sdg.make_draws(cpu_gen, LAYOUT_B, 16)
+    batch = dk.synthetic_batch_plain(draws, trainer.dg_cfg)
+    alphas = [torch.rand(LAYOUT_B, generator=cpu_gen) for _ in range(5)]
+    tf32_gp = make_flat_step(trainer.generator, trainer.critic, 16, "bfloat16", "ambient",
+                             True)
+    runs = {"cpu": clone_step(trainer, False, device="cpu", flat=trainer.step.flat, **kw),
+            "card": clone_step(trainer, False, flat=trainer.step.flat, **kw),
+            "card_tf32_gp": clone_step(trainer, False, flat=tf32_gp, **kw),
+            "cpu_one_ulp": clone_step(trainer, False, device="cpu", flat=trainer.step.flat, **kw)}
+    start = {n: p.detach().cpu().clone() for n, p in all_params(runs["cpu"]).items()}
+    with torch.no_grad():
+        for p in all_params(runs["cpu_one_ulp"]).values():
+            p.copy_(torch.nextafter(p, torch.full_like(p, math.inf)))
+    ulp_start = {n: p.detach().clone() for n, p in all_params(runs["cpu_one_ulp"]).items()}
+    ends, step_metrics = {}, {}
+    for name, st in runs.items():
+        d = "cpu" if name.startswith("cpu") else dev
+        t_step = time.time()
+        m = _deterministic(lambda: st.run({k: v.to(d) for k, v in batch.items()},
+                                          [a.to(d) for a in alphas]))
+        step_metrics[name] = {k: float(v) for k, v in m.items()}
+        step_metrics[name]["seconds"] = round(time.time() - t_step, 3)
+        ends[name] = {n: p.detach().cpu() for n, p in all_params(st).items()}
+    leg["step_metrics"] = step_metrics
+    floor = leg["cpu_one_ulp_vs_cpu_max_rel_diff"] = max(
+        float(((ends["cpu_one_ulp"][n] - ulp_start[n]) - (ends["cpu"][n] - p0)).abs().max()
+              / (ends["cpu"][n] - p0).abs().max()) for n, p0 in start.items())
+    limit = leg["card_vs_cpu_limit"] = LAYOUT_CPU_FACTOR * floor
+    leg["card_vs_cpu_max_rel_diff"] = gate("headline step, card against CPU", updates_agree(
+        start, ends["card"], ends["cpu"], None, "")[1], limit)
+    leg["tf32_gp_vs_cpu_max_rel_diff"] = gate(
+        "control: Hopper TF32 in the penalty chain against the CPU",
+        updates_agree(start, ends["card_tf32_gp"], ends["cpu"], None, "")[1], limit,
+        beyond=True)
+    # tf32_matmul card against CPU: the flat critic's scores with every
+    # product on it, and the penalty's gradients with respect to the
+    # critic's parameters (its grad-of-grad)
+    crit = make_critic_flat_apply(mm="tf32x3")
+    tf32 = {}
+    for d in ("cpu", dev):
+        c = copy.deepcopy(runs["cpu"].critic).to(d)
+        clean, noisy = batch["clean"].to(d), batch["noisy"].to(d)
+        score = crit(c, clean, noisy)
+        gp = compute_gradient_penalty(lambda a, b: crit(c, a, b), clean, batch["noisy"].roll(1, 0)
+                                      .to(d), noisy, alphas[0].to(d))
+        grads = torch.autograd.grad(gp, list(c.parameters()), allow_unused=True)
+        tf32[str(d)] = {"score": score.detach().cpu(),
+                        **{n: (torch.zeros_like(p) if g is None else g).cpu()
+                           for (n, p), g in zip(c.named_parameters(), grads)}}
+    card, cpu = tf32[str(dev)], tf32["cpu"]
+    leg["tf32_matmul"] = {"score_max_rel_diff": _grads_rel({"s": card["score"]},
+                                                          {"s": cpu["score"]}),
+                          "gp_grads_max_rel_diff": _grads_rel(
+                              {k: v for k, v in card.items() if k != "score"},
+                              {k: v for k, v in cpu.items() if k != "score" and v.abs().max() > 0})}
+    gate("tf32_matmul, card against CPU", max(leg["tf32_matmul"].values()), LAYOUT_TF32_RTOL)
+    del runs
+    # a replayed chunk, the same step eagerly, and the eager step as a
+    # trainer without graphs runs it (its schedule on the host, Adam not capturable)
+    host_sched = clone_step(trainer, False, flat=trainer.step.flat, **kw)
+    for name, fn, k in (("graphed", trainer.chunk, LAYOUT_SCAN),
+                        ("eager", EagerChunk(trainer.step, trainer.rng, LAYOUT_EAGER_STEPS),
+                         LAYOUT_EAGER_STEPS),
+                        ("eager_host_schedule",
+                         EagerChunk(host_sched, trainer.rng, LAYOUT_EAGER_STEPS),
+                         LAYOUT_EAGER_STEPS)):
+        leg[f"{name}_ms_per_step"] = ms_per_step_runs(fn, k)
+    del host_sched
+    leg["seconds"] = round(time.time() - t, 3)
+    out["b_headline"] = leg
+    del trainer, batch, draws
+
+    # ---- c: a graphed chunk of 26 steps against the same chunk run eagerly
+    t = time.time()
+    cfg = _layout_cfg("chunk")
+    trainer = Trainer(cfg, samples_per_epoch=2 * LAYOUT_CHUNK * MAIN_B, val_samples=256, seed=0,
+                      device=dev)
+    if not trainer.graphed or trainer.scan_steps != LAYOUT_CHUNK:
+        raise AssertionError(f"graphed {trainer.graphed}, chunk {trainer.scan_steps}")
+    chunk = trainer.chunk
+    leg = {}
+
+    def compare():
+        chunk()            # the warm-up chunk, eager on a side stream
+        before = _counts()
+        chunk.capture()
+        snap = _snapshot(trainer)
+        leg["wrapper_counts_moved"] = {"capture": _counts() != before}
+        m_replay, leg["launches_per_replay"] = replay_launches(chunk.replay)
+        m_replay = {k: float(v) for k, v in m_replay.items()}
+        leg["wrapper_counts_moved"]["replay"] = _counts() != before
+        replayed = {n: p.detach().clone() for n, p in all_params(trainer).items()}
+        _restore(trainer, snap)
+        m_eager = {k: float(v) for k, v in chunk.eager().items()}
+        eager_end = {n: p.detach().clone() for n, p in all_params(trainer).items()}
+        start = {k[2:]: v for k, v in snap[0].items() if k.startswith("p.")}
+        leg["replay_vs_eager_max_rel_diff"] = gate(
+            "replayed against eager chunk",
+            updates_agree(start, replayed, eager_end, None, "")[1], GRAPH_RTOL)
+        leg["metrics"] = {"replay": m_replay, "eager": m_eager}
+        _restore(trainer, snap)   # the same state and draws: the same chunk again
+        again = {k: float(v) for k, v in chunk.replay().items()}
+        _restore(trainer, snap, rng=False)   # the same state, the generator moved on
+        fresh = {k: float(v) for k, v in chunk.replay().items()}
+        leg["metrics"].update(replay_again=again, replay_fresh_draws=fresh)
+        if again != m_replay:
+            raise AssertionError(f"two replays from one state and generator differ: {again}")
+        if fresh["rec_loss"] == m_replay["rec_loss"] or fresh["d_loss"] == m_replay["d_loss"]:
+            raise AssertionError("a replay after the generator moved on drew the same batch")
+
+    _deterministic(compare)
+    want = {"datagen": LAYOUT_CHUNK, "critic_grad": 5 * LAYOUT_CHUNK}
+    if leg["launches_per_replay"] != want or any(leg["wrapper_counts_moved"].values()):
+        raise AssertionError(f"a replay ran {leg['launches_per_replay']} launches by its trace, "
+                             f"not {want}; wrapper counts moved {leg['wrapper_counts_moved']}")
+    # a replayed chunk, the same chunk eagerly, and the eager chunk as a
+    # trainer without graphs runs it (its schedule on the host, Adam not capturable)
+    host_sched = EagerChunk(clone_step(trainer, False), trainer.rng, LAYOUT_CHUNK)
+    for name, fn in (("graphed", chunk.replay), ("eager", chunk.eager),
+                     ("eager_host_schedule", host_sched)):
+        leg[f"{name}_ms_per_step"] = ms_per_step_runs(fn, LAYOUT_CHUNK)
+        leg[f"{name}_per_chunk"] = _chunk_profile(fn)
+    leg["seconds"] = round(time.time() - t, 3)
+    out["c_chunk"] = leg
+    # the phase's training runs (legs a and b)
+    out["launches"] = {k: out["a_flat"]["launches"][k] + out["b_headline"]["launches"][k]
+                       for k in ("datagen", "critic_grad")}
+    if failed:
+        print(json.dumps({"phase": "layout", "failed_gates": failed, **out}), flush=True)
+        raise AssertionError(f"phase layout failed {failed}")
+    return out
+
+
 def main() -> int:
     t0 = time.time()
     if not torch.cuda.is_available():
@@ -2271,15 +2701,16 @@ def main() -> int:
     steps = 20
     trainer = Trainer(cfg, samples_per_epoch=steps * cfg.training.batch_size, val_samples=256,
                       seed=0, device="cuda")
-    dk.launches = 0
-    ck.launches = 0
     t_train = time.time()
-    history = trainer.train(epochs=2, experiment_name="chip_smoke")
-    torch.cuda.synchronize()
+    with counted_launches(trainer) as counted:
+        history = trainer.train(epochs=2, experiment_name="chip_smoke")
+        torch.cuda.synchronize()
     train_s = time.time() - t_train
-    launches = {"datagen": dk.launches, "critic_grad": ck.launches}
-    if launches["datagen"] <= 0 or launches["critic_grad"] <= 0:
-        raise AssertionError(f"the training run did not go through both kernels: {launches}")
+    launches = {"datagen": counted["datagen"], "critic_grad": counted["critic_grad"]}
+    want = {"datagen": 2 * steps, "critic_grad": 2 * steps * cfg.training.n_critic}
+    if launches != want or not trainer.graphed or counted["replays"] != 1:
+        raise AssertionError(f"the training run launched {launches} ({counted['replayed']} in "
+                             f"{counted['replays']} replays), not {want}")
     if not all(math.isfinite(v) for rec in history for v in rec.values()) or len(history) != 2:
         raise AssertionError(f"non-finite or missing training metrics: {history}")
     routes = {"datagen": trainer.step.datagen_route, "critic": trainer.step.critic_route}
@@ -2298,7 +2729,8 @@ def main() -> int:
     m_p = step_p.run(sdg.synthetic_batch_from_draws(draws, trainer.dg_cfg), alphas)
     step_diff, step_rel = updates_agree(start, all_params(step_k), all_params(step_p),
                                         STEP_RTOL, "kernel and plain steps")
-    log("train", t, launches=launches, routes=routes, train_s=round(train_s, 3), history=history,
+    log("train", t, launches=launches, replayed_launches=counted["replayed"],
+        replays=counted["replays"], routes=routes, train_s=round(train_s, 3), history=history,
         step_update_max_abs_diff=step_diff, step_update_max_rel_diff=step_rel,
         step_metrics_kernel={k: float(v) for k, v in m_k.items()},
         step_metrics_plain={k: float(v) for k, v in m_p.items()})
@@ -2366,7 +2798,13 @@ def main() -> int:
     par = parallel_phase(dev)
     log("parallel", t, **par)
 
-    # ---- 12. report
+    # ---- 12. the TPU layout variants: the flat step, the reference bench's
+    # headline flags at full width, and graphed chunks
+    t = time.time()
+    lay = layout_phase(dev, gen)
+    log("layout", t, **lay)
+
+    # ---- 13. report
     db, dby = datagen_bound_ms(MAIN_B, 16)
     cb, cby = critic_bound_ms(MAIN_B)
     dg_main, cr_main = dg_times[f"L16_B{MAIN_B}"], cr_times[MAIN_B]
@@ -2383,7 +2821,8 @@ def main() -> int:
                               "eval": eval_launches["datagen"],
                               "verify": verify_launches["datagen"],
                               "serve": serve_launches["datagen"],
-                              "parallel": par["launches"]["datagen"]}},
+                              "parallel": par["launches"]["datagen"],
+                              "layout": lay["launches"]["datagen"]}},
         {"name": "critic_grad", "route": "cuda", "source": "ofdmgan_tpu_torch/csrc/critic_grad.cu",
          "replaces": "ofdmgan_tpu/ops/pallas_critic.py:195", "launches": launches["critic_grad"],
          "max_abs_err": critic_err[MAIN_B], "ms": cr_main["ms"],
@@ -2396,7 +2835,8 @@ def main() -> int:
                               "eval": eval_launches["critic_grad"],
                               "verify": verify_launches["critic_grad"],
                               "serve": serve_launches["critic_grad"],
-                              "parallel": par["launches"]["critic_grad"]}},
+                              "parallel": par["launches"]["critic_grad"],
+                              "layout": lay["launches"]["critic_grad"]}},
     ]
     log("total", t0)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -93,6 +93,7 @@ class Config:
     export_dir: str = "./export"
     export_after_training: bool = True
     samples_per_epoch: int = 10_000   # synthetic frames per epoch
+    scan_steps: int = 0               # outer steps per dispatched chunk (0: the trainer's choice)
 
 
 def config_from_dict(d: Dict[str, Any]) -> Config:
@@ -146,6 +147,7 @@ def config_from_dict(d: Dict[str, Any]) -> Config:
         export_dir=d.get("paths", {}).get("export_dir", base.export_dir),
         export_after_training=bool(d.get("export_after_training", True)),
         samples_per_epoch=int(d.get("tpu", {}).get("samples_per_epoch", base.samples_per_epoch)),
+        scan_steps=int(d.get("tpu", {}).get("scan_steps", base.scan_steps)),
     )
 
 

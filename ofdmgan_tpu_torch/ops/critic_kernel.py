@@ -58,7 +58,10 @@ PARAM_SHAPES = (("conv1.weight", (8, 4, 3)), ("conv1.bias", (8,)),
                 ("conv2.weight", (16, 8, 3)), ("conv2.bias", (16,)),
                 ("dense.weight", (1, 16)), ("dense.bias", (1,)))
 METRICS = ("d_loss", "wasserstein_distance", "gradient_penalty", "d_real_mean", "d_fake_mean")
-launches = 0  # kernel launches since the caller last set it to 0
+# kernel launches run since the caller last set it to 0; a launch captured
+# into a CUDA graph is not counted: it runs at the graph's replays, which
+# call no wrapper (a profiler's trace counts those)
+launches = 0
 
 
 def _same(t: torch.Tensor) -> torch.Tensor:
@@ -223,7 +226,8 @@ def _launch(critic, clean, fake, noisy, alpha, gp_weight: float, slope: float, b
     err = fn(*args)
     if err != 0:
         raise RuntimeError(f"critic-gradient kernel launch failed: CUDA error {err}")
-    launches += 1
+    if not torch.cuda.is_current_stream_capturing():   # a captured launch runs at replays
+        launches += 1
     return _split(out)
 
 

@@ -31,7 +31,10 @@ from ..signal.datagen import DatagenConfig, make_draws
 
 MAX_LENGTH = 1024
 DRAW_KEYS = ("zr", "zi", "pn", "nr", "ni")
-launches = 0  # kernel launches since the caller last set it to 0
+# kernel launches run since the caller last set it to 0; a launch captured
+# into a CUDA graph is not counted: it runs at the graph's replays, which
+# call no wrapper (a profiler's trace counts those)
+launches = 0
 
 
 def _covers_recipe(cfg: DatagenConfig) -> bool:
@@ -219,7 +222,8 @@ def _launch(cfg: DatagenConfig, batch_size: int, device: torch.device,
     err = fn(*args)
     if err != 0:
         raise RuntimeError(f"datagen kernel launch failed: CUDA error {err}")
-    launches += 1
+    if not torch.cuda.is_current_stream_capturing():   # a captured launch runs at replays
+        launches += 1
     return out
 
 

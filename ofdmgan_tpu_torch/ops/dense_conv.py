@@ -3,9 +3,15 @@
 Counterpart of ``ofdmgan_tpu/ops/dense_conv.py:93``. A channels-last frame
 ``[L, C]`` flattens row-major to index ``t*C + c``; a zero-padded strided
 conv1d is then ``y.flatten() = x.flatten() @ A``. The critic-gradient kernel
-works on these matrices, and ``dense_grads_to_params`` maps its gradients
-back to the conv kernels through autograd of this expansion. The module also
-holds the U-Nets' nearest-neighbour upsample.
+works on these matrices, ``dense_grads_to_params`` maps its gradients back
+to the conv kernels through autograd of this expansion, and the flat mini
+step (``models/flat.py``) trains through them. The matrix is built in the
+reference's ``"onehot"`` form (``ofdmgan_tpu/ops/dense_conv.py:69-90``).
+Its ``"dus"`` form (``:103-113``, the reference's default) builds the
+same matrix bit for bit (its weight gradient sums the same terms in another
+order); on a TPU the two differ in generated code, so the port keeps one
+form, and the trainer's ``conv_expand`` is accepted and changes nothing.
+The module also holds the U-Nets' nearest-neighbour upsample.
 """
 
 from __future__ import annotations
@@ -38,13 +44,17 @@ def conv1d_dense_matrix(w: torch.Tensor, l_in: int, stride: int, padding: int) -
     """Torch conv weight ``[C_out, C_in, K]`` -> ``[L_in*C_in, L_out*C_out]``.
 
     Exactly one placement entry is non-zero per output cell, so the matrix
-    holds the weights themselves, not sums of them.
+    holds the weights themselves, not sums of them. It is one broadcast
+    multiply-reduce against the 0/1 placement tensor: elementwise, so exact
+    under any matmul precision.
     """
     cout, cin, k = w.shape
     l_out = conv1d_output_length(l_in, k, stride, padding)
+    blocks = w.permute(2, 1, 0)[:, None].expand(k, l_out, cin, cout)
     p = _placement(k, l_in, l_out, stride, padding, w.device)
-    a = torch.einsum("oik,kab->aibo", w, p)
-    return a.reshape(l_in * cin, l_out * cout)
+    # [k,l_in,l_out,1,1] * [k,1,l_out,cin,cout] -> sum over k -> [l_in,l_out,cin,cout]
+    a = (p[:, :, :, None, None] * blocks[:, None]).sum(0)
+    return a.permute(0, 2, 1, 3).reshape(l_in * cin, l_out * cout)
 
 
 def upsample_nearest_2x(x: torch.Tensor) -> torch.Tensor:

@@ -19,6 +19,7 @@ import dataclasses
 import math
 from typing import Dict, Tuple
 
+import numpy as np
 import torch
 
 
@@ -66,10 +67,14 @@ def multipath_cir(hr, hi, delays=(0, 1, 2), powers=(1.0, 0.5, 0.25)) -> torch.Te
     """Channel impulse response ``[..., max(delays) + 1]``: per-tap Rayleigh
     draws ``hr``/``hi`` ``[..., len(delays)]`` scaled by the square roots of
     the normalised tap powers, placed at their delays."""
-    p = torch.tensor(powers, dtype=torch.float32, device=hr.device)
-    taps = _cn01(hr, hi) * torch.sqrt(p / p.sum())
+    # the scales in float32 on the host, and one tap at a time: nothing is
+    # copied to the device (a CUDA graph holds this step)
+    p = np.asarray(powers, np.float32)
+    scales = np.sqrt(p / p.sum(dtype=np.float32))
+    taps = _cn01(hr, hi)
     h = torch.zeros(hr.shape[:-1] + (max(delays) + 1,), dtype=torch.complex64, device=hr.device)
-    h[..., list(delays)] = taps
+    for i, d in enumerate(delays):
+        h[..., d] = taps[..., i] * float(scales[i])
     return h
 
 

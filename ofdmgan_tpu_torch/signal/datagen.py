@@ -12,14 +12,26 @@ reference. Returns channels-last ``[B, L, 2]`` float32.
 (channel noise), all standard normals ``[B, L]``, ``u`` ``[B]`` uniform on
 (0, 1) for the SNR, and the fading channels' draws of
 ``channel.draw_shapes`` (``hr``, ``hi``, ``theta``), drawn after the rest.
+
+``synthetic_batch_flat`` is the reference's matmul-form datagen for the
+linear AWGN configuration (``ofdmgan_tpu/signal/datagen.py:106-182``):
+the same frames as flat ``[B, 2L]`` interleaved I/Q, the inverse DFT and
+the interleave as float32 products with constant matrices instead of an
+FFT. It is ported for parity with the reference and is on no training
+path: the flat step takes its batches as the module step does, from the
+datagen kernel (``ops/datagen_kernel.py``, the same function, whose
+``[B, L, 2]`` output viewed as ``[B, 2L]`` is this layout) or from
+``synthetic_batch``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Dict
 
+import numpy as np
 import torch
 
 from . import channel as channel_lib
@@ -83,6 +95,58 @@ def synthetic_batch(gen: torch.Generator, batch_size: int, cfg: DatagenConfig):
     """A batch of (noisy, clean, snr) frames on ``gen``'s device."""
     return synthetic_batch_from_draws(
         make_draws(gen, batch_size, cfg.frame_length, cfg.channel), cfg)
+
+
+@functools.lru_cache(maxsize=None)
+def _flat_dft_mats(L: int, device: torch.device):
+    """``(Mr, Mi, Er, Ei)``, ``[L, 2L]`` float32 matrices mapping the normal
+    draws to flat frames: ``clean = zr @ Mr + zi @ Mi`` is
+    ``ifft((zr + j zi) / sqrt(2)) * sqrt(L)`` as interleaved I/Q, and
+    ``nr @ Er + ni @ Ei`` interleaves the noise draws. Kept per device."""
+    t = np.arange(L)[:, None]
+    k = np.arange(L)[None, :]
+    c = np.exp(2j * np.pi * t * k / L)   # c[t, k] = e^{+j 2 pi t k / L}
+    s = 1.0 / np.sqrt(2.0 * L)   # (1/L from the ifft) * sqrt(L) / sqrt(2)
+    mr, mi, er, ei = (np.zeros((L, 2 * L), np.float32) for _ in range(4))
+    for tt in range(L):
+        for kk in range(L):
+            mr[kk, 2 * tt] = s * c[tt, kk].real
+            mr[kk, 2 * tt + 1] = s * c[tt, kk].imag
+            mi[kk, 2 * tt] = -s * c[tt, kk].imag
+            mi[kk, 2 * tt + 1] = s * c[tt, kk].real
+        er[tt, 2 * tt] = 1.0
+        ei[tt, 2 * tt + 1] = 1.0
+    return tuple(torch.from_numpy(m).to(device) for m in (mr, mi, er, ei))
+
+
+def check_flat_config(cfg: DatagenConfig) -> None:
+    if cfg.nonlinear or cfg.channel.kind != "awgn":
+        raise ValueError("synthetic_batch_flat covers the linear AWGN config; "
+                         "use synthetic_batch otherwise")
+
+
+def synthetic_batch_flat_from_draws(draws: Dict[str, torch.Tensor], cfg: DatagenConfig):
+    """Flat ``[B, 2L]`` frames from the draws ``zr``, ``zi``, ``nr``, ``ni``
+    ``[B, L]`` and ``u`` ``[B]`` (the reference's stream: the spectrum, the
+    SNR, then the channel's noise)."""
+    check_flat_config(cfg)
+    L = cfg.frame_length
+    mr, mi, er, ei = _flat_dft_mats(L, draws["zr"].device)
+    clean = draws["zr"] @ mr + draws["zi"] @ mi   # unit mean power
+    snr = cfg.snr_min + (cfg.snr_max - cfg.snr_min) * draws["u"]
+    # channel.awgn's noise: per-frame power of the channel input, sigma per dimension
+    power = (clean * clean).sum(dim=-1, keepdim=True) / L
+    std = torch.sqrt(power / torch.pow(10.0, snr[:, None] / 10.0) / 2.0)
+    noisy = clean + std * (draws["nr"] @ er + draws["ni"] @ ei)
+    m = torch.maximum(noisy.abs().amax(dim=-1, keepdim=True),
+                      clean.abs().amax(dim=-1, keepdim=True)).clamp_min(1e-12)
+    return {"noisy": noisy / m, "clean": clean / m, "snr": snr}
+
+
+def synthetic_batch_flat(gen: torch.Generator, batch_size: int, cfg: DatagenConfig):
+    """A flat ``[B, 2L]`` batch of the linear AWGN configuration on ``gen``'s device."""
+    check_flat_config(cfg)
+    return synthetic_batch_flat_from_draws(make_draws(gen, batch_size, cfg.frame_length), cfg)
 
 
 def test_batch_at_snr_from_draws(draws: Dict[str, torch.Tensor], snr_db: float,

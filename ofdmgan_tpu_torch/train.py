@@ -27,6 +27,16 @@ with ``--device cpu``), from ``--coordinator host:port --num_processes P
 --process_id I`` (a rendezvous of P launches, each with ``--local_devices``
 ranks or one), or from torchrun's environment; rank 0 alone writes
 checkpoints, metrics and the export.
+
+The reference's TPU layout flags, with its defaults: ``--scan_steps N``
+(outer steps per dispatched chunk; 0, the default, picks the reference's
+chunk; on the card the mini step runs each chunk as one CUDA graph),
+``--flat`` (the mini pair's flat ``[B, F]`` step) with ``--premap``, ``--mm
+{ambient,tf32x3,tf32x3_gp}``, ``--pallas_datagen`` (require the datagen
+kernel's route), ``--platform {cpu,gpu,cuda}`` (an alias of ``--device``),
+and ``--conv_expand {dus,onehot}``, ``--critic_unroll N`` and ``--prng
+{threefry,rbg,unsafe_rbg}``, which are accepted and change nothing
+(``training/trainer.py`` says why).
 Without ``--config`` it uses the defaults of ``config/config.yaml``; with
 it, the YAML file (needs PyYAML).
 """
@@ -117,6 +127,34 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--experiment", default=None)
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default=None, help="cuda (default) or cpu")
+    p.add_argument("--platform", default=None, choices=sorted(PLATFORMS),
+                   help="the reference's platform flag: an alias of --device (gpu = cuda)")
+    p.add_argument("--scan_steps", type=int, default=None,
+                   help="outer steps per dispatched chunk (0: min(steps per epoch, 32), "
+                        "lowered until it divides the epoch; default: the config's); the "
+                        "EMA is updated once per chunk")
+    p.add_argument("--pallas_datagen", action="store_true",
+                   help="require the datagen kernel's route (the AWGN channel, linear or the "
+                        "default nonlinear chain); without it the route is chosen by scope")
+    p.add_argument("--flat", action="store_true",
+                   help="mini model only: train with the flat-layout [B, F] applies (folded "
+                        "upsample/concat/pool); the batches come from the same datagen as "
+                        "without it; checkpoints, eval and export are unchanged")
+    p.add_argument("--mm", default="ambient", choices=["ambient", "tf32x3", "tf32x3_gp"],
+                   help="the flat step's products (requires --flat): tf32x3 = every model "
+                        "product on the bf16x3 decomposition, tf32x3_gp = the gradient-penalty "
+                        "chain's alone")
+    p.add_argument("--premap", action="store_true",
+                   help="build the flat step's dense matrices once per parameter value per "
+                        "loss (requires --flat)")
+    p.add_argument("--conv_expand", default="dus", choices=["dus", "onehot"],
+                   help="the reference's dense-matrix expansion; accepted, no effect here "
+                        "(both forms give the same matrices bit for bit)")
+    p.add_argument("--critic_unroll", type=int, default=1,
+                   help="the reference's unroll of its critic scan; accepted, no effect here")
+    p.add_argument("--prng", default="threefry", choices=["threefry", "rbg", "unsafe_rbg"],
+                   help="the reference's bit generator; accepted, the draws here are always "
+                        "Philox torch.Generator streams")
     p.add_argument("--nan_policy", choices=["restore_best", "raise", "ignore"],
                    default="restore_best")
     p.add_argument("--dp", type=int, default=None,
@@ -147,8 +185,17 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
+PLATFORMS = {"cpu": "cpu", "gpu": "cuda", "cuda": "cuda"}
+
+
 def check_args(parser: argparse.ArgumentParser, args) -> None:
-    """The reference's refusals (train.py:274-276, 329-343)."""
+    """The reference's refusals (train.py:274-276, 329-343), and
+    ``--platform`` folded into ``--device``."""
+    if args.platform is not None:
+        kind = PLATFORMS[args.platform]
+        if args.device is not None and args.device.split(":")[0] != kind:
+            parser.error(f"--platform {args.platform} conflicts with --device {args.device}")
+        args.device = args.device or kind
     full = args.model == "full"
     if args.residual and full:
         parser.error("--residual applies to the mini generator")
@@ -229,7 +276,9 @@ def _train_rank(argv):
     ``rank_summary``."""
     import torch
 
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    check_args(parser, args)
     device = "cpu" if args.device == "cpu" else torch.device("cuda", torch.cuda.current_device())
     return rank_summary(train(args, config_from_args(args), device))
 
@@ -266,7 +315,11 @@ def train(args, cfg, device):
                       matmul_precision=args.matmul_precision, remat=args.remat,
                       debug_nans=args.debug_nans, data_parallel=args.dp or 0,
                       strategy=args.strategy, tensor_parallel=args.tp, seq_parallel=args.sp,
-                      pipeline_parallel=args.pp, microbatches=args.microbatches)
+                      pipeline_parallel=args.pp, microbatches=args.microbatches,
+                      scan_steps=args.scan_steps, flat_step=args.flat, mm=args.mm,
+                      premap=args.premap, conv_expand=args.conv_expand,
+                      use_pallas_datagen=args.pallas_datagen,
+                      critic_unroll=args.critic_unroll, prng=args.prng)
     trainer.nan_policy = args.nan_policy
     print(f"Generator parameters: {count_parameters(trainer.generator):,}")
     print(f"Discriminator parameters: {count_parameters(trainer.critic):,}")

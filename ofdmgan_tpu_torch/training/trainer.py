@@ -1,9 +1,23 @@
-"""The trainer: epochs, validation, the NaN policy, JSONL metrics, full-state
-checkpoints with resume and warm start, an EMA of the generator, the
-profiling hook and the image datasets.
+"""The trainer: epochs in scan chunks, validation, the NaN policy, JSONL
+metrics, full-state checkpoints with resume and warm start, an EMA of the
+generator, the profiling hook, the image datasets and the flat step.
 
 Counterpart of ``ofdmgan_tpu/training/trainer.py:52-674``. An epoch is
-``samples_per_epoch // batch_size`` outer steps. Checkpoints keep the
+``samples_per_epoch // batch_size`` outer steps, dispatched in chunks of
+``scan_steps`` (``training/chunks.py``: 0 picks the reference's
+``min(steps_per_epoch, 32)``, lowered until it divides the epoch); an
+epoch's metrics are those of its last chunk's last step. The EMA of the
+generator is updated once per chunk with the decay ``ema_decay **
+scan_steps`` (reference ``trainer.py:436-456``): an EMA of the
+chunk-boundary parameters. How a chunk runs is fixed by the
+configuration: on the card, the mini family's single-device step (its QAT
+modes and the flat step included) runs each chunk as one CUDA graph
+(``GraphedChunk``, its optimizers holding their schedules on the device);
+the full family (its step is bound by the device), the parallel
+strategies (gloo cannot be captured), the image datasets (their samplers
+run on the host), ``debug_nans`` (a check after every step) and the CPU
+run each chunk step by step (``EagerChunk``), as does ``profile_steps``,
+whose count is in chunks. Checkpoints keep the
 reference's names: ``checkpoint_epoch_{N}/``, ``best_model/`` (a copy of the
 best) and ``final_model/``, each with
 
@@ -52,6 +66,27 @@ through the fused k = 2-pair decoder (``models/unet_infer.py``), and
 the steps under autograd's anomaly detection, which names the backward op
 that first made a NaN, and raises ``FloatingPointError`` on the first step
 whose metrics are not finite.
+
+The reference's TPU layout settings (``trainer.py:193-252``):
+``flat_step`` trains the standard mini pair through its flat ``[B, F]``
+applies (``models/flat.py``; not with QAT, the RTL's operations or the full
+family, and only on the single-device step), with ``premap`` (the dense
+matrices built once per parameter value per loss), ``mm`` (``"ambient"``,
+``"tf32x3"``, or ``"tf32x3_gp"``: the penalty chain alone on the bf16x3
+products); ``mm`` and ``premap`` need ``flat_step``. ``conv_expand`` (the
+reference's choice of the dense matrices' expansion, ``"dus"`` or
+``"onehot"``) is accepted and changes nothing: the two forms give the same
+matrices bit for bit, and the port builds the ``"onehot"`` form
+(``ops/dense_conv.py``).
+``use_pallas_datagen`` requires the datagen kernel's route and raises
+outside its scope; without it the route is chosen by scope.
+``critic_unroll`` (the reference's unroll of its critic scan, "pure
+codegen, identical numerics") and ``prng`` (its bit generator, "the same
+recipe statistics with a different stream") are accepted and change
+nothing: eager and graphed steps have no scan to unroll, and the port's
+draws always come from its Philox ``torch.Generator``s. The parallel
+strategies refuse the flat step, ``use_pallas_datagen``, ``mm`` and
+``critic_unroll`` as the reference's do.
 """
 
 from __future__ import annotations
@@ -70,6 +105,7 @@ import torch
 from ..config import Config, datagen_config_from, loss_config_from
 from ..device import resolve_device
 from ..models import FullDiscriminator, FullUNetGenerator, MiniDiscriminator, MiniGenerator
+from ..models.flat import STEP_MM_MODES, make_flat_step
 from ..models.full_unet import unet_param_shardings
 from ..models.generator import FP8_DTYPES, storage_dtype
 from ..models.unet_infer import make_unet_infer_apply
@@ -79,8 +115,9 @@ from ..utils.logging import MetricsLogger
 from ..utils.params_io import load_params_tree, save_params_tree
 from ..parallel import distributed
 from ..parallel.mesh import ShardedTrainStep
+from .chunks import EagerChunk, GraphedChunk, chunk_size
 from .schedules import make_adam
-from .wgan_gp import TrainStep, make_eval_step
+from .wgan_gp import TrainStep, make_eval_step, require_datagen_kernel
 
 NAN_POLICIES = ("restore_best", "raise", "ignore")
 STRATEGIES = ("shard_map", "gspmd", "pp")
@@ -90,6 +127,8 @@ TRAIN_LOG_KEYS = {"d_loss": "d_loss", "g_loss": "g_loss", "wasserstein": "wasser
 
 
 MODEL_FAMILIES = ("mini", "full")
+PRNG_IMPLS = ("threefry", "rbg", "unsafe_rbg")   # the reference's; accepted, no effect
+CONV_EXPANDS = ("dus", "onehot")                  # the reference's; accepted, no effect
 
 
 def build_models(config: Config, family: str = "mini", seed: int = 0, act_dtype=None,
@@ -134,15 +173,27 @@ class Trainer:
                  matmul_precision: str = "float32", remat: bool = False,
                  debug_nans: bool = False, data_parallel: int = 0,
                  strategy: str = "shard_map", tensor_parallel: int = 1,
-                 seq_parallel: int = 1, pipeline_parallel: int = 0, microbatches: int = 8):
+                 seq_parallel: int = 1, pipeline_parallel: int = 0, microbatches: int = 8,
+                 scan_steps: Optional[int] = None, flat_step: bool = False,
+                 mm: str = "ambient", premap: bool = False, conv_expand: str = "dus",
+                 use_pallas_datagen: bool = False, critic_unroll: int = 1,
+                 prng: str = "threefry"):
         """Runs on the GPU unless ``device`` says otherwise (``"cpu"``).
+        ``scan_steps`` (default: the configuration's) sets the chunks, and
         ``ema_decay > 0`` keeps an EMA of the generator, updated after every
-        outer step; ``image_dir`` trains on image-derived frames
+        chunk; ``image_dir`` trains on image-derived frames
         (``image_chunks``: the chunk dataset) instead of synthetic ones.
         ``generator``/``discriminator`` replace the mini pair built from
         ``seed``; ``fused_decoder`` (a float full U-Net only, float32 or
         bfloat16 ``act_dtype``) trains through the fused decoder. The
-        parallel settings are described in the module's docstring."""
+        parallel and layout settings are described in the module's docstring."""
+        for value, allowed, name in ((mm, STEP_MM_MODES, "mm"), (conv_expand, CONV_EXPANDS,
+                                                                  "conv_expand"),
+                                     (prng, PRNG_IMPLS, "prng")):
+            if value not in allowed:
+                raise ValueError(f"{name} must be one of {allowed}, not {value!r}")
+        if critic_unroll < 1:
+            raise ValueError(f"critic_unroll must be at least 1, not {critic_unroll}")
         self.device = resolve_device(device)
         self.config = config or Config()
         tr = self.config.training
@@ -151,6 +202,8 @@ class Trainer:
         self.batch_size = tr.batch_size
         spe = samples_per_epoch or self.config.samples_per_epoch
         self.steps_per_epoch = max(1, spe // self.batch_size)
+        self.scan_steps = chunk_size(self.steps_per_epoch, self.config.scan_steps
+                                     if scan_steps is None else scan_steps)
         self.val_batches = max(1, val_samples // self.batch_size)
 
         act_dtype = storage_dtype(act_dtype)
@@ -178,18 +231,36 @@ class Trainer:
                 levels=self.generator.levels, leaky_slope=self.generator.leaky_slope,
                 act_dtype=act_dtype or torch.float32)
 
+        flat = None
+        if flat_step:
+            g, d = self.generator, self.critic
+            if not (isinstance(g, MiniGenerator) and isinstance(d, MiniDiscriminator)
+                    and not g.qat and not g.rtl_faithful):
+                raise ValueError("flat_step supports the standard mini model family "
+                                 "(float, tanh/residual head)")
+            flat = make_flat_step(g, d, self.dg_cfg.frame_length, act_dtype, mm, premap)
+        elif mm != "ambient":
+            raise ValueError("mm requires flat_step")
+        elif premap:
+            raise ValueError("premap requires flat_step")
+
         self.image_dataset = self._image_dataset(image_dir, image_chunks, samples_per_image)
         batch_fn = self.image_dataset.sample_batch if self.image_dataset else None
+        if use_pallas_datagen:
+            require_datagen_kernel(self.dg_cfg, batch_fn)
         self.debug_nans = debug_nans
         self._fresh_optimizers()
         step_kw = dict(batch_fn=batch_fn, gen_forward=gen_forward, act_dtype=act_dtype,
                        matmul_precision=matmul_precision, remat=remat)
+        layout = {"flat_step": flat_step, "use_pallas_datagen": use_pallas_datagen,
+                  "mm": mm != "ambient", "critic_unroll": critic_unroll != 1}
         self.mesh = None
         self.step = self._parallel_step(strategy, data_parallel, tensor_parallel, seq_parallel,
-                                        pipeline_parallel, microbatches, step_kw)
+                                        pipeline_parallel, microbatches, step_kw, layout)
         if self.step is None:
             self.step = TrainStep(self.generator, self.critic, self.opt_g, self.opt_d,
-                                  self.dg_cfg, self.loss_cfg, self.batch_size, **step_kw)
+                                  self.dg_cfg, self.loss_cfg, self.batch_size, flat=flat,
+                                  **step_kw)
         self.is_main_process = distributed.is_main_process()
         self._eval = make_eval_step(self.generator, self.dg_cfg, self.batch_size, batch_fn)
         self.rng = torch.Generator(device=self.device)
@@ -199,6 +270,16 @@ class Trainer:
         self.step_seeds = torch.Generator().manual_seed(seed + 1)
         self._step_rng = self.step_seeds if self.mesh is not None and \
             isinstance(self.step, ShardedTrainStep) else self.rng
+        # the mini family's single-device step on the card: one CUDA graph a chunk
+        self.graphed = (self.device.type == "cuda" and self.mesh is None and batch_fn is None
+                        and not debug_nans and isinstance(self.generator, MiniGenerator)
+                        and isinstance(self.critic, MiniDiscriminator))
+        if self.graphed:
+            self.opt_g.hold_on_device()
+            self.opt_d.hold_on_device()
+            self.chunk = GraphedChunk(self.step, self.rng, self.scan_steps)
+        else:
+            self.chunk = EagerChunk(self.step, self._step_rng, self.scan_steps)
 
         self.ema_decay = float(ema_decay)
         self.ema_generator: Optional[torch.nn.Module] = None
@@ -236,14 +317,19 @@ class Trainer:
         return ds
 
     def _parallel_step(self, strategy, data_parallel, tensor_parallel, seq_parallel,
-                       pipeline_parallel, microbatches, step_kw):
+                       pipeline_parallel, microbatches, step_kw, layout):
         """The step of ``strategy`` over a mesh of the process group's ranks,
         or ``None`` for the single-process step (reference
-        ``trainer.py:282-392``)."""
+        ``trainer.py:282-392``). ``layout`` holds which of the TPU layout
+        settings are set, which the parallel strategies refuse."""
         from ..parallel import (make_gspmd_train_step, make_mesh, make_pp_trainstate_step,
                                 make_sharded_train_step, replicate_state)
 
         world = distributed.world_size()
+        if strategy in ("gspmd", "pp"):
+            for name, flag in layout.items():
+                if flag:
+                    raise ValueError(f"strategy={strategy!r} does not support {name}")
         if strategy == "gspmd":
             for flag, name in ((step_kw["remat"], "remat"),
                                (step_kw["batch_fn"] is not None, "image datasets")):
@@ -298,6 +384,9 @@ class Trainer:
                 raise RuntimeError(f"data_parallel={data_parallel} needs {data_parallel} ranks: "
                                    "launch with --local_devices, a coordinator or torchrun")
             return None
+        if layout["flat_step"]:   # reference trainer.py:384-392, and so every flat mode here
+            raise ValueError("the flat step (and mm='tf32x3_gp') is wired for the single-device "
+                             "step; drop --flat with dp>1")
         self.mesh = make_mesh({"dp": data_parallel})
         replicate_state((self.generator, self.critic))
         return make_sharded_train_step(self.generator, self.critic, self.opt_g, self.opt_d,
@@ -306,7 +395,8 @@ class Trainer:
 
     def _fresh_optimizers(self) -> None:
         """New Adam states at schedule position 0. StepLR counts optimizer
-        updates: G updates once per step, D n_critic times."""
+        updates: G updates once per step, D n_critic times. A graphed chunk
+        holds them on the device and is captured again."""
         tr = self.config.training
         decay_g = tr.scheduler_step * self.steps_per_epoch
         decay_d = decay_g * max(self.loss_cfg.n_critic, 1)
@@ -314,8 +404,13 @@ class Trainer:
                                decay_g, tr.scheduler_gamma)
         self.opt_d = make_adam(self.critic.parameters(), tr.lr_discriminator, tr.betas,
                                decay_d, tr.scheduler_gamma)
+        if getattr(self, "graphed", False):
+            self.opt_g.hold_on_device()
+            self.opt_d.hold_on_device()
         if hasattr(self, "step"):
             self.step.set_optimizers(self.opt_g, self.opt_d)
+        if hasattr(self, "chunk"):
+            self.chunk.reset()
 
     def _gather_state(self) -> None:
         """The step's tensor-sharded generator state back into
@@ -327,25 +422,33 @@ class Trainer:
     # ------------------------------------------------------------- training
     @torch.no_grad()
     def update_ema(self) -> None:
-        """ema = decay * ema + (1 - decay) * generator, per parameter (the
-        reference's per-chunk decay ``decay ** scan_steps`` at one step)."""
-        d = self.ema_decay
+        """ema = d * ema + (1 - d) * generator, per parameter, with the
+        chunk's decay d = ``ema_decay ** scan_steps`` (reference
+        ``trainer.py:450-455``)."""
+        d = self.ema_decay ** self.scan_steps
         for e, p in zip(self.ema_generator.parameters(), self.generator.parameters()):
             e.mul_(d).add_(p, alpha=1.0 - d)
 
-    def train_epoch(self) -> Dict[str, float]:
-        """Run one epoch; the last step's metrics, read once at the end."""
-        metrics: Dict[str, torch.Tensor] = {}
-        for i in range(self.steps_per_epoch):
-            if self.debug_nans:
-                with torch.autograd.detect_anomaly():
-                    metrics = self.step(self._step_rng)
-                bad = [k for k, v in metrics.items() if not bool(torch.isfinite(v))]
-                if bad:
-                    raise FloatingPointError(f"non-finite {bad} at step "
-                                             f"{self.global_step + i}: {metrics}")
-            else:
+    def _checked_chunk(self, first_step: int) -> Dict[str, torch.Tensor]:
+        """A chunk step by step under anomaly detection, each step's metrics
+        checked on the host (``debug_nans``)."""
+        for i in range(self.scan_steps):
+            with torch.autograd.detect_anomaly():
                 metrics = self.step(self._step_rng)
+            bad = [k for k, v in metrics.items() if not bool(torch.isfinite(v))]
+            if bad:
+                raise FloatingPointError(f"non-finite {bad} at step {first_step + i}: {metrics}")
+        return metrics
+
+    def train_epoch(self) -> Dict[str, float]:
+        """Run one epoch in chunks; the metrics of the last chunk's last
+        step, read once at the end."""
+        metrics: Dict[str, torch.Tensor] = {}
+        for c in range(self.steps_per_epoch // self.scan_steps):
+            if self.debug_nans:
+                metrics = self._checked_chunk(self.global_step + c * self.scan_steps)
+            else:
+                metrics = self.chunk()
             if self.ema_generator is not None:
                 self._gather_state()
                 self.update_ema()
@@ -362,10 +465,10 @@ class Trainer:
                 totals[k] = totals.get(k, 0.0) + float(v)
         return {k: v / self.val_batches for k, v in totals.items()}
 
-    def profile_steps(self, n_steps: int = 2, trace_dir: Optional[str] = None) -> str:
-        """Trace ``n_steps`` outer steps with ``torch.profiler`` into a Chrome
-        trace ``trace.json`` under ``trace_dir`` (default: the run's log
-        directory's ``profile/``); returns the directory."""
+    def profile_steps(self, n_chunks: int = 2, trace_dir: Optional[str] = None) -> str:
+        """Trace ``n_chunks`` chunks, run step by step, with ``torch.profiler``
+        into a Chrome trace ``trace.json`` under ``trace_dir`` (default: the
+        run's log directory's ``profile/``); returns the directory."""
         from torch.profiler import ProfilerActivity, profile
 
         trace_dir = Path(trace_dir or (self.logger.dir if self.logger
@@ -374,9 +477,10 @@ class Trainer:
         activities = [ProfilerActivity.CPU]
         if self.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
+        chunk = EagerChunk(self.step, self._step_rng, self.scan_steps)
         with profile(activities=activities) as prof:
-            for _ in range(n_steps):
-                self.step(self._step_rng)
+            for _ in range(n_chunks):
+                chunk()
             if self.device.type == "cuda":
                 torch.cuda.synchronize(self.device)
         prof.export_chrome_trace(str(trace_dir / "trace.json"))
@@ -410,8 +514,8 @@ class Trainer:
         save_params_tree(str(path / "params_d.npz"), to_jax_params(self.critic))
         if self.ema_generator is not None:
             save_params_tree(str(path / "ema_params_g.npz"), to_jax_params(self.ema_generator))
-        torch.save({"opt_g": self.opt_g.opt.state_dict(), "sched_g": self.opt_g.sched.state_dict(),
-                    "opt_d": self.opt_d.opt.state_dict(), "sched_d": self.opt_d.sched.state_dict()},
+        (opt_g, sched_g), (opt_d, sched_d) = self.opt_g.state_dict(), self.opt_d.state_dict()
+        torch.save({"opt_g": opt_g, "sched_g": sched_g, "opt_d": opt_d, "sched_d": sched_d},
                    path / "optimizer.pt")
         sidecar = {"epoch": self.current_epoch, "global_step": self.global_step,
                    "best_val_loss": self.best_val_loss,
@@ -457,10 +561,8 @@ class Trainer:
         # loaded to the host: Adam moves the moments to the parameters' device
         # and keeps its step counts on the host, as it makes them
         state = torch.load(path / "optimizer.pt", map_location="cpu")
-        self.opt_g.opt.load_state_dict(state["opt_g"])
-        self.opt_g.sched.load_state_dict(state["sched_g"])
-        self.opt_d.opt.load_state_dict(state["opt_d"])
-        self.opt_d.sched.load_state_dict(state["sched_d"])
+        self.opt_g.load_state_dict(state["opt_g"], state["sched_g"])
+        self.opt_d.load_state_dict(state["opt_d"], state["sched_d"])
         if self.ema_generator is not None:
             if (path / "ema_params_g.npz").exists():
                 self._load_module(self.ema_generator, path / "ema_params_g.npz")
@@ -471,6 +573,7 @@ class Trainer:
         self.global_step = sidecar["global_step"]
         self.best_val_loss = sidecar["best_val_loss"]
         self.step.set_optimizers(self.opt_g, self.opt_d)
+        self.chunk.reset()   # the optimizer's state tensors were replaced
 
     # ----------------------------------------------------------------- loop
     def train(self, epochs: Optional[int] = None,
@@ -490,7 +593,8 @@ class Trainer:
         history: List[Dict[str, float]] = []
         mesh = dict(zip(self.mesh.mesh_dim_names, self.mesh.shape)) if self.mesh else None
         print(f"Training for {epochs} epochs | batch {self.batch_size} | "
-              f"{self.steps_per_epoch} steps/epoch | n_critic {self.loss_cfg.n_critic} | "
+              f"{self.steps_per_epoch} steps/epoch (scan {self.scan_steps}, "
+              f"{'graphed' if self.graphed else 'eager'}) | n_critic {self.loss_cfg.n_critic} | "
               f"gp {self.loss_cfg.gp_weight} | rec {self.loss_cfg.rec_weight} | "
               f"device {self.device} | datagen {self.step.datagen_route} | "
               f"critic {self.step.critic_route} | "

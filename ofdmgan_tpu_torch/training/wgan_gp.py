@@ -44,7 +44,8 @@ Three settings follow the reference's ``build_train_step``:
   (``matmul_precision``): ``float32``, the default, keeps TF32 off for
   matrix products and cuDNN convolutions; ``tensorfloat32`` turns both on,
   which on Hopper is TF32 (10 mantissa bits), not the TPU's bf16x3 that the
-  reference's mode means there; ``bfloat16`` rounds the operands of every
+  reference's mode means there (the flat step's ``mm="tf32x3"`` computes
+  that, ``models/flat.tf32_matmul``); ``bfloat16`` rounds the operands of every
   conv and linear of the step, and of their derivatives, to bf16 and
   computes in float32 with TF32 off (``ops/bf16_dots.py``): the TPU's
   one-pass bf16 with float32 accumulation, as the reference's
@@ -64,6 +65,16 @@ under ``torch.utils.checkpoint`` (non-reentrant, so the penalty's double
 backward goes through it). It computes the same function. With the critic
 kernel, the generator's applies and the generator step's critic apply are
 the ones recomputed, as there.
+
+``flat`` (``models/flat.FlatStep``) trains the mini pair through its flat
+``[B, F]`` applies (reference ``trainer.py:193-252``): the training forward,
+the critic applies, the gradient-penalty chain's own critic
+(``critic_apply_gp``, reference ``wgan_gp.py:76-129``) and, with premaps,
+the dense matrices built once per parameter value per loss and shared by
+every apply of that loss (reference ``wgan_gp.py:153-175``). It draws its
+batches as the module step does (the flat applies read ``[B, L, 2]``
+frames as ``[B, 2L]``), and its critic keeps the kernel route where its
+applies compute the module's function (``FlatStep.module_critic``).
 
 Two settings serve the parallel strategies (``parallel/``):
 ``critic_forward(critic, candidate, condition)`` replaces the critic
@@ -94,6 +105,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..models.critic import compute_gradient_penalty
+from ..models.flat import FlatStep
 from ..models.generator import FP8_DTYPES, as_dtype, storage_dtype
 from ..ops import bf16_dots, critic_kernel, datagen_kernel
 from ..signal.datagen import DatagenConfig, synthetic_batch
@@ -140,10 +152,12 @@ def gp_precision(mode: str):
 
 
 def critic_loss_fn(critic: Callable, generator: Callable, batch, alpha: torch.Tensor,
-                   cfg: LossConfig, gp_context=contextlib.nullcontext, frame_sum=None):
+                   cfg: LossConfig, gp_context=contextlib.nullcontext, frame_sum=None,
+                   critic_gp: Optional[Callable] = None):
     """L_D and its metrics; ``alpha`` ``[B]`` are the penalty's uniforms.
     ``generator`` is the module or any training forward ``noisy -> fake``,
-    ``critic`` the module or any apply of it; the penalty runs inside
+    ``critic`` the module or any apply of it, ``critic_gp`` (default
+    ``critic``) the critic of the penalty chain; the penalty runs inside
     ``gp_context()``, its per-frame sums through ``frame_sum`` (see
     ``compute_gradient_penalty``)."""
     noisy, clean = batch["noisy"], batch["clean"]
@@ -154,7 +168,7 @@ def critic_loss_fn(critic: Callable, generator: Callable, batch, alpha: torch.Te
     d_fake = critic(fake, noisy)
     wasserstein = d_fake.mean() - d_real.mean()
     with gp_context():
-        gp = compute_gradient_penalty(critic, clean, fake, noisy, alpha, frame_sum)
+        gp = compute_gradient_penalty(critic_gp or critic, clean, fake, noisy, alpha, frame_sum)
     # the penalty is summed into the loss in float32 (a bf16 penalty too),
     # as XLA's fused arithmetic does in the reference
     loss = wasserstein + cfg.gp_weight * as_dtype(gp, torch.float32)
@@ -181,6 +195,15 @@ def generator_loss_fn(generator: Callable, critic: Callable, batch, cfg: LossCon
     return loss, {"g_loss": loss.detach(), "adv_loss": adv.detach(), "rec_loss": rec.detach()}
 
 
+def require_datagen_kernel(dg_cfg: DatagenConfig, batch_fn=None) -> None:
+    """The reference's ``use_pallas_datagen``: raise unless the datagen
+    kernel's route covers the configuration (its refusal, ``wgan_gp.py:281-292``)."""
+    if batch_fn is not None or not datagen_kernel.covers(dg_cfg):
+        raise ValueError("pallas datagen kernel covers the AWGN channel with the default "
+                         "nonlinear chain (Rapp PA + IQ + phase noise); use the XLA path "
+                         "for other configurations")
+
+
 def _apply_grads(module: nn.Module, opt: AdamStepLR, grads) -> None:
     for p, g in zip(module.parameters(), grads):
         p.grad = g
@@ -204,8 +227,8 @@ class TrainStep:
     """One outer step on ``generator``/``critic`` in place; built by
     ``build_train_step``. ``batch_fn(rng, n)`` replaces the synthetic datagen
     (reference ``wgan_gp.py:279-280``); ``gen_forward``, ``critic_forward``,
-    ``shard``, ``act_dtype``, ``matmul_precision`` and ``remat`` as in the
-    module's docstring."""
+    ``shard``, ``act_dtype``, ``matmul_precision``, ``remat`` and ``flat``
+    as in the module's docstring."""
 
     def __init__(self, generator: nn.Module, critic: nn.Module, opt_g: AdamStepLR,
                  opt_d: AdamStepLR, dg_cfg: DatagenConfig, loss_cfg: LossConfig,
@@ -213,7 +236,8 @@ class TrainStep:
                  batch_fn: Optional[Callable[[torch.Generator, int], dict]] = None,
                  gen_forward: Optional[Callable[[nn.Module, torch.Tensor], torch.Tensor]] = None,
                  act_dtype=None, matmul_precision: str = "float32", remat: bool = False,
-                 critic_forward: Optional[Callable] = None, shard=None):
+                 critic_forward: Optional[Callable] = None, shard=None,
+                 flat: Optional[FlatStep] = None):
         if loss_cfg.n_critic == 0 and loss_cfg.adv_weight != 0.0:
             raise ValueError("n_critic=0 (the supervised path) requires adv_weight=0: "
                              "with no critic updates an adversarial generator term "
@@ -230,6 +254,7 @@ class TrainStep:
         self.dg_cfg, self.loss_cfg = dg_cfg, loss_cfg
         self.batch_size = batch_size
         self.batch_fn = batch_fn
+        self.flat = flat
         self.reference = reference
 
     def set_optimizers(self, opt_g: AdamStepLR, opt_d: AdamStepLR) -> None:
@@ -247,6 +272,7 @@ class TrainStep:
         self._reference = bool(value)
         kernel_data = not value and self.batch_fn is None and datagen_kernel.covers(self.dg_cfg)
         kernel_critic = (not value and self.act_dtype is None and self.critic_forward is None
+                         and (self.flat is None or self.flat.module_critic)
                          and self.matmul_precision in ("float32", "bfloat16")
                          and critic_kernel.covers(self.critic, self.dg_cfg.frame_length))
         self.datagen_route = "kernel" if kernel_data else "plain"
@@ -276,35 +302,60 @@ class TrainStep:
         return self.run(*self.draw(rng))
 
     def forward(self, noisy: torch.Tensor) -> torch.Tensor:
-        """The generator's training forward."""
-        if self.gen_forward is None:
+        """The generator's training forward (with a flat premap, the dense
+        matrices are built at each call: once per loss)."""
+        if self.flat is not None:
+            pre = self.flat.gen_premap
+            fwd = functools.partial(self.flat.gen_apply,
+                                    self.generator if pre is None else pre(self.generator))
+        elif self.gen_forward is None:
             fwd = self.generator
         else:
             fwd = functools.partial(self.gen_forward, self.generator)
         return _recomputed(fwd)(noisy) if self.remat else fwd(noisy)
 
-    def critic_apply(self) -> Callable:
-        """The critic as the step applies it."""
-        if self.critic_forward is None:
+    def critic_applies(self):
+        """The critic as the step applies it, and the penalty chain's critic
+        (``None``: the same); a flat premap is built here, once per loss."""
+        gp = None
+        if self.flat is not None:
+            pre = self.flat.critic_premap
+            d = self.critic if pre is None else pre(self.critic)
+            fwd = functools.partial(self.flat.critic_apply, d)
+            if self.flat.critic_apply_gp is not None:
+                gp = functools.partial(self.flat.critic_apply_gp, d)
+        elif self.critic_forward is None:
             fwd = self.critic
         else:
             fwd = functools.partial(self.critic_forward, self.critic)
-        return _recomputed(fwd) if self.remat else fwd
+        if self.remat:
+            return _recomputed(fwd), gp and _recomputed(gp)
+        return fwd, gp
+
+    def critic_apply(self) -> Callable:
+        """The critic as the step applies it."""
+        return self.critic_applies()[0]
 
     def critic_update(self, batch, alpha: torch.Tensor) -> Dict[str, torch.Tensor]:
         if self.critic_route == "kernel":
             noisy, clean = batch["noisy"], batch["clean"]
             with torch.no_grad():
                 fake = self.forward(noisy)
+            if self.flat is not None:   # the kernel reads [B, L, 2] frames
+                noisy, clean, fake = (t.reshape(t.shape[0], -1, 2) for t in (noisy, clean, fake))
             grads, aux = critic_kernel.critic_grad(
                 self.critic, clean, fake, noisy, alpha, self.loss_cfg.gp_weight,
                 self.critic.leaky_slope, bf16=self.matmul_precision == "bfloat16")
             grads = [grads[name] for name, _ in self.critic.named_parameters()]
         else:
-            gp_context = functools.partial(gp_precision, self.matmul_precision)
-            loss, aux = critic_loss_fn(self.critic_apply(), self.forward, batch, alpha,
-                                       self.loss_cfg, gp_context,
-                                       self.shard.frame_sum if self.shard else None)
+            critic, critic_gp = self.critic_applies()
+            # a penalty chain of its own takes precedence over the mixed
+            # modes' context (reference wgan_gp.py:92-98)
+            gp_context = (contextlib.nullcontext if critic_gp is not None
+                          else functools.partial(gp_precision, self.matmul_precision))
+            loss, aux = critic_loss_fn(critic, self.forward, batch, alpha, self.loss_cfg,
+                                       gp_context, self.shard.frame_sum if self.shard else None,
+                                       critic_gp)
             grads = torch.autograd.grad(loss, list(self.critic.parameters()))
         if self.shard is not None:
             grads, aux = self.shard.reduce(self.critic, grads, aux)

@@ -6,7 +6,11 @@ ignores it. ``with_bf16_operands(fun)`` traces ``fun`` to a jaxpr and
 evaluates it with the two operands of each of those primitives rounded to
 bf16, in nested jaxprs too. Traced after ``jax.grad``, the jaxpr holds the
 backward's transposed dots, which the TPU also runs at the same precision.
-Nothing of the JAX package changes.
+With ``only_default``, only the dots and convolutions whose precision is
+``DEFAULT`` are rounded (the ones a TPU runs as one bf16 pass: those of
+the ``bfloat16`` context and those that ask for it, as the flat model's
+``tf32_matmul`` does), and the ``float32`` context's stay exact. A ``scan``
+runs its body once per iteration. Nothing of the JAX package changes.
 """
 
 import jax
@@ -21,7 +25,32 @@ def _round(x):
     return x.astype(jnp.bfloat16).astype(x.dtype) if x.dtype == jnp.float32 else x
 
 
-def _eval(jaxpr, consts, *args):
+def _one_pass(eqn, only_default: bool) -> bool:
+    if eqn.primitive.name not in ROUNDED:
+        return False
+    if not only_default:
+        return True
+    prec = eqn.params.get("precision")
+    return prec is not None and all(p == jax.lax.Precision.DEFAULT for p in
+                                    (prec if isinstance(prec, tuple) else (prec,)))
+
+
+def _scan(eqn, invals, only_default):
+    p = eqn.params
+    body, n_consts, n_carry = p["jaxpr"], p["num_consts"], p["num_carry"]
+    consts, carry = invals[:n_consts], invals[n_consts:n_consts + n_carry]
+    xs = invals[n_consts + n_carry:]
+    order = range(p["length"] - 1, -1, -1) if p["reverse"] else range(p["length"])
+    ys = {}
+    for i in order:
+        out = _eval(body.jaxpr, body.consts, *consts, *carry, *(x[i] for x in xs),
+                    only_default=only_default)
+        carry, ys[i] = out[:n_carry], out[n_carry:]
+    n_ys = len(eqn.outvars) - n_carry
+    return list(carry) + [jnp.stack([ys[i][j] for i in range(p["length"])]) for j in range(n_ys)]
+
+
+def _eval(jaxpr, consts, *args, only_default: bool = False):
     env = {}
 
     def read(v):
@@ -34,12 +63,14 @@ def _eval(jaxpr, consts, *args):
     for eqn in jaxpr.eqns:
         invals = [read(v) for v in eqn.invars]
         sub = next((eqn.params[k] for k in SUB_JAXPRS if k in eqn.params), None)
-        if eqn.primitive.name in ROUNDED:
+        if _one_pass(eqn, only_default):
             outs = eqn.primitive.bind(*map(_round, invals[:2]), *invals[2:], **eqn.params)
+        elif eqn.primitive.name == "scan":
+            outs = _scan(eqn, invals, only_default)
         elif sub is not None:
             closed = sub if hasattr(sub, "consts") else jcore.ClosedJaxpr(sub, ())
             n = len(closed.jaxpr.invars)
-            outs = _eval(closed.jaxpr, closed.consts, *invals[-n:])
+            outs = _eval(closed.jaxpr, closed.consts, *invals[-n:], only_default=only_default)
         else:
             subfuns, params = eqn.primitive.get_bind_params(eqn.params)
             outs = eqn.primitive.bind(*subfuns, *invals, **params)
@@ -50,12 +81,13 @@ def _eval(jaxpr, consts, *args):
     return [read(v) for v in jaxpr.outvars]
 
 
-def with_bf16_operands(fun):
-    """``fun`` with every dot's and conv's operands rounded to bf16."""
+def with_bf16_operands(fun, only_default: bool = False):
+    """``fun`` with every dot's and conv's operands rounded to bf16 (with
+    ``only_default``, those of ``DEFAULT`` precision)."""
     def wrapped(*args):
         closed, shape = jax.make_jaxpr(fun, return_shape=True)(*args)
         flat = jax.tree_util.tree_leaves(args)
-        outs = _eval(closed.jaxpr, closed.consts, *flat)
+        outs = _eval(closed.jaxpr, closed.consts, *flat, only_default=only_default)
         return jax.tree_util.tree_unflatten(jax.tree_util.tree_structure(shape), outs)
 
     return wrapped

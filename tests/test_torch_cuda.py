@@ -48,10 +48,22 @@ datagen and five critic launches a step; two ranks sharing the card over
 gloo stay bit for bit in lockstep and take, from a warmed-up state, a step
 within 1e-3 of each tensor's largest update of one process's step on both
 ranks' draws. Asking for NCCL without a GPU raises (this one runs on the
-CPU too).
+CPU too). Graphed chunks: a replayed chunk of the mini step equals the same
+chunk run eagerly from the same state and generator state, bit for bit
+(deterministic cuDNN; the same kernels on the same inputs), and so does a
+second replay from that state; a replay after the generator moved on draws
+other batches; neither the capture nor a replay moves a wrapper's launch
+count, and a replay runs, by its profiler trace, one datagen launch and
+five critic launches (each a per-block kernel and its sum) a step. The
+flat step's ``tf32_matmul`` on the card against the CPU: the critic's
+scores within 1e-6 and the penalty's parameter gradients within 1e-3 of
+each tensor's largest entry (both are sums of exact products of bf16
+parts, summed in another order; a cotangent summed apart may round to the
+other bf16 neighbour).
 """
 
 import copy
+import re
 
 import numpy as np
 import pytest
@@ -703,3 +715,113 @@ def test_nccl_without_a_gpu_raises(tmp_path):
     with pytest.raises(RuntimeError, match="NCCL needs a CUDA device"):
         distributed.initialize(f"file://{tmp_path}/store", device="cuda")
     assert not distributed.is_initialized()
+
+
+def _graph_state(trainer) -> dict:
+    out = {f"p{i}": p for i, p in enumerate(list(trainer.generator.parameters())
+                                            + list(trainer.critic.parameters()))}
+    for tag, opt in (("g", trainer.opt_g), ("d", trainer.opt_d)):
+        for i, st in enumerate(opt.opt.state.values()):
+            out.update({f"{tag}{i}{k}": v for k, v in st.items()})
+        out[tag + "lr"], out[tag + "count"] = opt.opt.param_groups[0]["lr"], opt.count
+    return out
+
+
+def _graphed_trainer(tmp_path, steps=8, scan=4):
+    from ofdmgan_tpu_torch.config import Config, TrainingSection
+    from ofdmgan_tpu_torch.training.trainer import Trainer
+    cfg = Config(training=TrainingSection(batch_size=16), checkpoint_dir=str(tmp_path / "ck"),
+                 log_dir=str(tmp_path / "logs"), export_after_training=False)
+    t = Trainer(cfg, samples_per_epoch=steps * 16, val_samples=16, device="cuda", scan_steps=scan)
+    assert t.graphed and t.scan_steps == scan
+    return t
+
+
+def _traced_kernels(fn):
+    """``(fn(), counts)``: the port's kernels that ran on the device in one
+    call of ``fn``, by name, from ``torch.profiler``'s trace (its first step,
+    one small kernel, is dropped: the profiler misses a trace's first kernel).
+    The traced window can lose its leading records, so it opens with 32
+    launches of the Box-Muller kernel, a name no step runs, and one must be
+    left in the trace."""
+    from torch.profiler import ProfilerActivity, profile, schedule
+    probe = torch.zeros(1, device="cuda")
+    bits = torch.zeros((1, 2), dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
+        probe.add_(1)
+        torch.cuda.synchronize()
+        prof.step()
+        for _ in range(32):
+            dk.box_muller(bits)
+        torch.cuda.synchronize()
+        out = fn()
+        torch.cuda.synchronize()
+        prof.step()
+    names = ("box_muller_kernel", "datagen_kernel", "critic_grad_kernel",
+             "critic_grad_sum_kernel")
+    events = [e for e in prof.key_averages() if e.device_type != torch.autograd.DeviceType.CPU]
+    counts = {n: sum(e.count for e in events if re.search(rf"\b{n}\b", e.key)) for n in names}
+    assert counts.pop("box_muller_kernel") > 0
+    return out, counts
+
+
+def test_a_graphed_chunk_matches_its_eager_twin_and_counts_its_launches(cuda, tmp_path):
+    t = _graphed_trainer(tmp_path)
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        t.chunk()   # the warm-up chunk
+        dk.launches = ck.launches = 0
+        t.chunk.capture()
+        snap = ({k: v.detach().clone() for k, v in _graph_state(t).items()}, t.rng.get_state())
+
+        def restore(rng=True):
+            with torch.no_grad():
+                for k, v in _graph_state(t).items():
+                    v.copy_(snap[0][k])
+            if rng:
+                t.rng.set_state(snap[1])
+
+        m_replay, traced = _traced_kernels(t.chunk.replay)
+        m_replay = {k: float(v) for k, v in m_replay.items()}
+        assert (dk.launches, ck.launches) == (0, 0)
+        assert traced == {"datagen_kernel": 4, "critic_grad_kernel": 20,
+                          "critic_grad_sum_kernel": 20}
+        replayed = [p.detach().clone() for p in _params(t)]
+        restore()
+        m_eager = {k: float(v) for k, v in t.chunk.eager().items()}
+        assert m_eager == m_replay
+        assert all(torch.equal(a, b) for a, b in zip(replayed, _params(t)))
+        restore()
+        assert {k: float(v) for k, v in t.chunk.replay().items()} == m_replay
+        restore(rng=False)
+        assert {k: float(v) for k, v in t.chunk.replay().items()}["rec_loss"] != \
+            m_replay["rec_loss"]
+    finally:
+        torch.backends.cudnn.deterministic = saved
+
+
+def test_tf32_matmul_on_the_card_matches_the_cpu(cuda):
+    from ofdmgan_tpu_torch.models.critic import compute_gradient_penalty
+    from ofdmgan_tpu_torch.models.flat import make_critic_flat_apply
+    gen = torch.Generator().manual_seed(8)
+    frames = [torch.randn(512, 16, 2, generator=gen) * 0.5 for _ in range(3)]
+    alpha = torch.rand(512, generator=gen)
+    torch.manual_seed(3)
+    critic = MiniDiscriminator()
+    apply = make_critic_flat_apply(mm="tf32x3")
+    out = {}
+    for dev in ("cpu", cuda):
+        c = copy.deepcopy(critic).to(dev)
+        real, fake, cond = (f.to(dev) for f in frames)
+        gp = compute_gradient_penalty(lambda a, b: apply(c, a, b), real, fake, cond,
+                                      alpha.to(dev))
+        grads = torch.autograd.grad(gp, list(c.parameters()), allow_unused=True)
+        out[str(dev)] = ([apply(c, real, cond).detach().cpu()]
+                         + [g.cpu() for g in grads if g is not None])
+    (score, *grads), (score_ref, *grads_ref) = out[str(cuda)], out["cpu"]
+    torch.testing.assert_close(score, score_ref, rtol=0, atol=1e-6 * float(score_ref.abs().max()))
+    for g, r in zip(grads, grads_ref):
+        torch.testing.assert_close(g, r, rtol=0, atol=1e-3 * float(r.abs().max()) + 1e-12)

@@ -53,7 +53,9 @@ MODULES = ("ofdmgan_tpu_torch.signal.channel", "ofdmgan_tpu_torch.signal.image_o
            "ofdmgan_tpu_torch.utils.torch_port", "ofdmgan_tpu_torch.model_selftest",
            "ofdmgan_tpu_torch.parallel", "ofdmgan_tpu_torch.parallel.mesh",
            "ofdmgan_tpu_torch.parallel.distributed", "ofdmgan_tpu_torch.parallel.gspmd",
-           "ofdmgan_tpu_torch.parallel.pipeline", "ofdmgan_tpu_torch.dryrun")
+           "ofdmgan_tpu_torch.parallel.pipeline", "ofdmgan_tpu_torch.dryrun",
+           "ofdmgan_tpu_torch.models.flat", "ofdmgan_tpu_torch.training.chunks",
+           "ofdmgan_tpu_torch.training.schedules", "ofdmgan_tpu_torch.signal.datagen")
 
 IMPORT_ALL = f"""
 import sys

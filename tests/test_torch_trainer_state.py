@@ -6,7 +6,8 @@ Resume and warm start are held to the reference's contract
 the uninterrupted trainer's step on the same draws (both on the CPU, so
 bit for bit); a warm start keeps only parameters, with fresh Adam states at
 schedule position 0. The EMA is held to the reference's formula
-(trainer.py:450-455 at one step per chunk) in float64, atol 1e-6. The
+(trainer.py:450-455: once per chunk, decay ** scan_steps, on the
+chunk-boundary parameters) in float64, atol 1e-6. The
 JSONL keys are held against a JAX ``Trainer`` run.
 """
 
@@ -156,9 +157,9 @@ def test_ema_follows_the_reference_formula(tmp_path):
     t.step.run = run
     ema = [p.detach().double().clone() for p in t.generator.parameters()]
     t.train_epoch()
-    assert len(snapshots) == t.steps_per_epoch == 3
-    for params in snapshots:
-        ema = [decay * e + (1.0 - decay) * p for e, p in zip(ema, params)]
+    assert len(snapshots) == t.steps_per_epoch == t.scan_steps == 3
+    d = decay ** t.scan_steps   # one chunk
+    ema = [d * e + (1.0 - d) * p for e, p in zip(ema, snapshots[-1])]
     for got, want in zip(t.ema_generator.parameters(), ema):
         np.testing.assert_allclose(got.detach().double().numpy(), want.numpy(), rtol=0, atol=1e-6)
 
