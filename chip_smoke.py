@@ -90,7 +90,24 @@ that a second replay from that state repeats it and that a replay after
 the generator moved on draws other batches, counts the launches of a
 replay from its trace (and checks that neither the capture nor the replay
 moved a wrapper's count), and times and profiles a replayed chunk, the
-eager chunk and the eager chunk as a trainer without graphs runs it. Every phase
+eager chunk and the eager chunk as a trainer without graphs runs it. Phase
+``completion`` runs what the last slice ported: leg a trains the mini
+``--rtl_qat --residual --act_dtype bfloat16`` recipe 2 x 20 steps through
+the datagen kernel (the critic through autograd, in graphed chunks),
+holds one step on the card against the same step on the CPU from one
+state and CPU-made draws, and shows that an e4m3fn ``qat`` forward is NaN
+everywhere on the card as on the CPU (``rtl_faithful`` alone finite on
+both); leg b trains the mini default under gspmd ``{dp: 1, sp: 2}`` on two
+ranks sharing the card over gloo (one epoch) and holds one step against
+the single-process step on the same global draws; leg c takes the full U-Net at
+full width (phase ``parallel``'s global batch) under gspmd dp2, tp2 and sp2
+with ``--quant_bits 8 16`` and tp2 and sp2 with ``--fused_decoder``, each
+from phase ``parallel``'s warmed-up checkpoint, against the single-device
+step of the same generator on the same draws, and times each; leg d takes
+the packed step (``ops/packed_step.py``) at batch 65,536, L = 16, p = 4
+and p = 2, two chunks of 32 steps through the datagen kernel, holds one
+packed step against the module step on the same batch's ``[B, L, 2]`` view
+from one state, and times both beside the flat step. Every phase
 prints one JSON line with its wall seconds as it ends. Any failed check raises, and the
 script exits non-zero. The last lines are the kernel table, the card's name
 and power limit, and the result line.
@@ -248,7 +265,39 @@ in every leg. All on an H100 (NVIDIA H100 80GB HBM3, 700.00 W). Its times
 are host clocks ending in a synchronize, each call timed alone after one
 untimed call, given as the median of LAYOUT_TIMED_RUNS calls with their
 spread: chunks of 26 steps at batch 64, chunks of 32 or calls of
-LAYOUT_EAGER_STEPS eager steps at 65,536.
+LAYOUT_EAGER_STEPS eager steps at 65,536. Phase ``completion``: leg a,
+the step on the card against the CPU, every parameter within a tenth of
+the learning rate and each tensor's update within 0.02 of the CPU
+update's norm (``tests/test_torch_act_dtype.py``'s bf16 tolerances: the
+critic's bf16 storage rounds sums taken in another order; the QAT
+generator's operands lie on the 2^-8 and 2^-7 grids, so its sums are
+exact on both devices), the e4m3fn NaN patterns equal; exact launches
+(40 datagen, 0 critic). Leg b within STEP_RTOL of each tensor's largest
+update (deterministic cuDNN), the ranks' parameters equal, 21 datagen and
+no critic launches a rank. Leg c: the fused layouts within phase
+``parallel``'s PAR_STEP_RTOL (1e-2 of each tensor's largest update, the
+same reasoning), with the fused step at TF32 beyond it, from phase
+``parallel``'s state warmed by PAR_WARM_STEPS steps (from a state warmed
+by 2 steps the fused tp2 layout read 1.4e-2 and 3.0e-2 at a
+near-zero-gradient entry whose update is 0.3 of its tensor's largest, on
+an H100: the less Adam's moments have seen, the more a summation order
+moves such an entry). The fused step's own spread under cuDNN's default
+algorithms is reported. The quantized layouts are held by their metrics
+(PAR_METRIC_RTOL) and by every quantization point's maximum on each
+rank's shard against the single-device step's on the global batch, within
+COMP_SCALE_RTOL, 2^-13 (four 16-bit steps; under tp the row-parallel
+sums round apart; 0 under dp and sp on an H100, 4.9e-5 under tp); their
+updates are reported, not gated: a float32 rounding that a layout moves
+flips 16-bit steps of the activations, which Adam's per-entry division
+carries into the update (under tp2 on an H100, 1.7e-2 of a largest
+update from PAR_WARM_STEPS warm-up steps, 0.17 and 0.24 from 2; JAX's
+own step moves 0.10 between dp1 and dp2 on the CPU). Leg
+d: the packed step within STEP_RTOL of the module step's update (the
+critic kernel and the packed critic's autograd sum in other orders),
+exactly 2 x 32 + 1 datagen launches for each p. Its times are host clocks
+ending in a synchronize: the second chunk of 32 for the packed step,
+PACKED_TIMED_STEPS eager steps after two for the flat and module steps;
+leg c's one timed step after one untimed.
 """
 
 from __future__ import annotations
@@ -348,6 +397,22 @@ LAYOUT_EAGER_STEPS = 4     # layout, leg b: outer steps a timed eager call
 LAYOUT_TIMED_RUNS = 3      # layout, legs b and c: timed calls of each form, after a warm one
 GRAPH_RTOL = 1e-6          # layout, leg c: a replayed chunk against the eager chunk, of each
                            # tensor's largest update over the chunk (deterministic cuDNN)
+COMP_STEPS = 20            # completion, leg a: rtl_qat bf16 steps per epoch (two epochs)
+COMP_PARAM_LR = 0.1        # completion, leg a: the step, card against CPU: every parameter within
+COMP_NORM_RTOL = 0.02      # a tenth of lr, each update within 0.02 of the CPU update's norm
+                           # (tests/test_torch_act_dtype.py's bf16 tolerances)
+COMP_LAYOUTS = {"dp2_quant": dict(data_parallel=2, quant_bits=(8, 16)),
+                "tp2_quant": dict(data_parallel=1, tensor_parallel=2, quant_bits=(8, 16)),
+                "sp2_quant": dict(data_parallel=1, seq_parallel=2, quant_bits=(8, 16)),
+                "tp2_fused": dict(data_parallel=1, tensor_parallel=2, fused_decoder=True),
+                "sp2_fused": dict(data_parallel=1, seq_parallel=2, fused_decoder=True)}
+COMP_SCALE_RTOL = 2.0 ** -13  # completion, leg c: a quantization point's maximum on a rank's
+                              # shard against the single-device step's (four 16-bit steps)
+COMP_TIMED_STEPS = 1       # completion, leg c: timed steps per layout, after one untimed step
+PACKED_B = 65536           # completion, leg d: the reference bench's batch (bench.py:56)
+PACKED_SCAN = 32           # completion, leg d: its chunk; two chunks for each p
+PACKED_PS = (4, 2)
+PACKED_TIMED_STEPS = 8     # completion, leg d: timed steps of the flat and module steps
 
 
 def log(phase: str, t0: float, **fields) -> None:
@@ -394,20 +459,29 @@ def profiled(fn, n: int, host: bool = True):
     that is traced and dropped: the profiler misses the first kernel of a
     trace (one datagen launch of each trace that had none before it).
     ``host`` also traces the host's ATen calls (costly where there are
-    hundreds of thousands)."""
+    hundreds of thousands). A trace that holds no device time at all (on
+    an H100 the profiler has lost a whole window's device records) is taken
+    again, up to PROFILE_ATTEMPTS times: every caller times work whose
+    results were checked before, and calls ``fn`` again only to measure."""
     from torch.profiler import ProfilerActivity, profile, schedule
-    torch.cuda.synchronize()
     activities = [ProfilerActivity.CPU] * host + [ProfilerActivity.CUDA]
-    with profile(activities=activities,
-                 schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
-        fn()
+    for _ in range(PROFILE_ATTEMPTS):
         torch.cuda.synchronize()
-        prof.step()
-        for _ in range(n):
+        with profile(activities=activities,
+                     schedule=schedule(wait=0, warmup=1, active=1, repeat=1)) as prof:
             fn()
-        torch.cuda.synchronize()
-        prof.step()
-    return prof.key_averages()
+            torch.cuda.synchronize()
+            prof.step()
+            for _ in range(n):
+                fn()
+            torch.cuda.synchronize()
+            prof.step()
+        events = prof.key_averages()
+        if any(device_us(e) > 0 for e in events
+               if e.device_type != torch.autograd.DeviceType.CPU):
+            break
+        RETRACED["timing"] += 1
+    return events
 
 
 def device_us(evt) -> float:
@@ -419,11 +493,13 @@ def profiled_us_per_call(fn, kernel: str, n: int = 20) -> float:
     holds ``kernel``: torch.profiler's kernel times summed over ``n`` calls."""
     for _ in range(3):
         fn()
-    us = sum(device_us(evt) for evt in profiled(fn, n)
-             if kernel in evt.key and evt.device_type != torch.autograd.DeviceType.CPU)
-    if us <= 0:
-        raise RuntimeError(f"the profiler traced no device time for {kernel}")
-    return us / n
+    for _ in range(PROFILE_ATTEMPTS):   # a trace can lose the kernel's records (``profiled``)
+        us = sum(device_us(evt) for evt in profiled(fn, n)
+                 if kernel in evt.key and evt.device_type != torch.autograd.DeviceType.CPU)
+        if us > 0:
+            return us / n
+        RETRACED["timing"] += 1
+    raise RuntimeError(f"the profiler traced no device time for {kernel}")
 
 
 # kinds of kernel by the words their names hold: the categories of
@@ -563,11 +639,36 @@ def timed_steps(step, rng, n: int = 5, warmup: int = 2) -> tuple[float, int]:
     return (time.perf_counter() - t) / n * 1e3, torch.cuda.max_memory_allocated()
 
 
-TRACE_SENTINELS = 32   # Box-Muller launches that open a traced window (see replay_launches)
+PROFILE_ATTEMPTS = 3       # traces taken where the profiler lost a window's records
+RETRACED = {"timing": 0, "replay": 0}   # windows traced again, printed with the total
+TRACE_SENTINELS = 512  # Box-Muller launches that open a traced window (see replay_launches)
+TRACE_SENTINEL_GROUP = 64   # ... in groups, each ended by a synchronize
 # the port's kernels by the names the profiler gives them (csrc/*.cu); the
 # critic wrapper launches the per-block kernel and its sum together
 TRACED_KERNELS = {"datagen": "datagen_kernel", "critic_grad": "critic_grad_kernel",
                   "critic_grad_sum": "critic_grad_sum_kernel"}
+
+
+class TraceLost(RuntimeError):
+    """A traced window lost every sentinel launch (``replay_launches``)."""
+
+
+def traced_replay(trainer, replay) -> tuple:
+    """``replay_launches(replay)`` for one replay of ``trainer``'s graphed
+    chunk. Where the trace lost every sentinel, the state the replay
+    started from is copied back in place (``_restore``: the parameters,
+    Adam's states and counts, the generator) and the same replay is traced
+    again, up to PROFILE_ATTEMPTS times; the last replay's state stands."""
+    snap = _snapshot(trainer)
+    for attempt in range(PROFILE_ATTEMPTS):
+        try:
+            return replay_launches(replay)
+        except TraceLost:
+            if attempt + 1 == PROFILE_ATTEMPTS:
+                raise
+            RETRACED["replay"] += 1
+            _restore(trainer, snap)
+    raise AssertionError("unreachable")
 
 
 def replay_launches(fn) -> tuple:
@@ -577,10 +678,12 @@ def replay_launches(fn) -> tuple:
     the trace (``TRACED_KERNELS``). The trace's first step runs one small
     kernel and is dropped: the profiler misses the first kernel of a trace.
     The traced window can also lose its leading records (on an H100, the
-    first 1 to 4 kernels of a replay in some calls, whole steps in others),
-    so it opens with TRACE_SENTINELS launches of the datagen module's
-    Box-Muller kernel, a name no step runs, before ``fn``: the count stands
-    only where a sentinel is left in the trace, and raises otherwise."""
+    first 1 to 4 kernels of a replay in some calls, whole steps in others,
+    and once all of 32 sentinel launches), so it opens with TRACE_SENTINELS
+    launches of the datagen module's Box-Muller kernel, a name no step runs,
+    in groups of TRACE_SENTINEL_GROUP each ended by a synchronize, before
+    ``fn``: the count stands only where a sentinel is left in the trace,
+    and raises otherwise."""
     import re
 
     from ofdmgan_tpu_torch.ops import datagen_kernel as dk
@@ -593,17 +696,18 @@ def replay_launches(fn) -> tuple:
         probe.add_(1)
         torch.cuda.synchronize()
         prof.step()
-        for _ in range(TRACE_SENTINELS):
-            dk.box_muller(bits)
-        torch.cuda.synchronize()
+        for _ in range(TRACE_SENTINELS // TRACE_SENTINEL_GROUP):
+            for _ in range(TRACE_SENTINEL_GROUP):
+                dk.box_muller(bits)
+            torch.cuda.synchronize()
         out = fn()
         torch.cuda.synchronize()
         prof.step()
     events = [e for e in prof.key_averages() if e.device_type != torch.autograd.DeviceType.CPU]
     count = lambda name: sum(e.count for e in events if re.search(rf"\b{name}\b", e.key))  # noqa: E731
     if not count("box_muller_kernel"):
-        raise RuntimeError(f"the trace lost all {TRACE_SENTINELS} sentinel launches: "
-                           "its count of the replay's launches may be short")
+        raise TraceLost(f"the trace lost all {TRACE_SENTINELS} sentinel launches: "
+                        "its count of the replay's launches may be short")
     counts = {k: count(name) for k, name in TRACED_KERNELS.items()}
     if counts["critic_grad_sum"] != counts["critic_grad"]:
         raise AssertionError(f"a replay ran the critic's kernels unpaired: {counts}")
@@ -627,7 +731,7 @@ def counted_launches(trainer=None):
         replay = chunk.replay
 
         def traced():
-            metrics, n = replay_launches(replay)
+            metrics, n = traced_replay(trainer, replay)
             out["replays"] += 1
             for k, v in n.items():
                 out["replayed"][k] += v
@@ -2036,16 +2140,18 @@ def _leg_b(d: str) -> dict:
             "metrics_single": {k: float(v) for k, v in m_single.items()}}
 
 
-def _full_trainer(d: str, batch: int, supervised: bool, dev, **parallel):
+def _full_trainer(d: str, batch: int, supervised: bool, dev, quant_bits=None, **parallel):
     """A full-width trainer (levels 5, base 32, L = 1024, AWGN) at global
-    ``batch``; ``supervised``: n_critic 0, adversarial weight 0."""
+    ``batch``; ``supervised``: n_critic 0, adversarial weight 0;
+    ``quant_bits`` the generator's; ``parallel`` the trainer's other
+    settings."""
     from ofdmgan_tpu_torch.config import Config
     from ofdmgan_tpu_torch.training.trainer import Trainer, build_models
     base = Config(checkpoint_dir=f"{d}/ck", log_dir=f"{d}/logs", export_after_training=False)
     tr = dataclasses.replace(base.training, batch_size=batch,
                              **(dict(n_critic=0, adversarial_weight=0.0) if supervised else {}))
     cfg = dataclasses.replace(base, frame_length=FULL_L, training=tr)
-    g, dd = build_models(cfg, "full", seed=0)
+    g, dd = build_models(cfg, "full", seed=0, quant_bits=quant_bits)
     return Trainer(cfg, samples_per_epoch=batch, val_samples=batch, seed=0, device=dev,
                    generator=g, discriminator=dd, **parallel)
 
@@ -2477,7 +2583,7 @@ def layout_phase(dev, gen) -> dict:
         chunk.capture()
         snap = _snapshot(trainer)
         leg["wrapper_counts_moved"] = {"capture": _counts() != before}
-        m_replay, leg["launches_per_replay"] = replay_launches(chunk.replay)
+        m_replay, leg["launches_per_replay"] = traced_replay(trainer, chunk.replay)
         m_replay = {k: float(v) for k, v in m_replay.items()}
         leg["wrapper_counts_moved"]["replay"] = _counts() != before
         replayed = {n: p.detach().clone() for n, p in all_params(trainer).items()}
@@ -2519,6 +2625,409 @@ def layout_phase(dev, gen) -> dict:
     if failed:
         print(json.dumps({"phase": "layout", "failed_gates": failed, **out}), flush=True)
         raise AssertionError(f"phase layout failed {failed}")
+    return out
+
+
+def _full_kind(name: str) -> str:
+    return "quant" if name.endswith("quant") else "fused"
+
+
+def _recording_amax(seen: list):
+    """A stand-in for ``GSPMDTrainStep._amax`` that records each maximum
+    it returns (the global one)."""
+    from ofdmgan_tpu_torch.parallel.gspmd import GSPMDTrainStep
+    inner = GSPMDTrainStep._amax
+
+    def record(self, m, name):
+        out = inner(self, m, name)
+        seen.append((name, out.detach().reshape(-1).cpu().clone()))
+        return out
+    return record
+
+
+def _comp_leg_b(d: str) -> dict:
+    """Completion, leg b: the mini default under gspmd {dp: 1, sp: 2} on two
+    ranks sharing the card over gloo: one epoch, then one step
+    (deterministic cuDNN) against the single-process step on the same
+    global draws."""
+    from ofdmgan_tpu_torch.parallel import distributed
+    from ofdmgan_tpu_torch.training.trainer import Trainer
+    dev = _rank_device()
+    trainer = Trainer(_mini_config(f"{d}/b"), samples_per_epoch=PAR_MINI_STEPS * MAIN_B,
+                      val_samples=256, seed=0, device=dev, strategy="gspmd", data_parallel=1,
+                      seq_parallel=2)
+    _counts_reset()
+    t = time.perf_counter()
+    trainer.train(epochs=1, experiment_name="completion_b")
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t
+    single = clone_step(trainer, False)
+    start = {n: p.detach().clone() for n, p in all_params(single).items()}
+    draws = trainer.step.draw(torch.Generator(device=dev).manual_seed(PAR_SEED))
+    m_sp = _deterministic(lambda: trainer.step.run(*draws))
+    launches = _counts()
+    traffic = dict(distributed.traffic)
+    same = _same_on_every_rank(trainer)
+    m_single = _deterministic(lambda: single.run(*draws))
+    diff, rel = updates_agree(start, all_params(trainer), all_params(single), None, "")
+    ms, _ = timed_steps(trainer.step, trainer.rng, n=PAR_MINI_STEPS)
+    return {"routes": {"datagen": trainer.step.datagen_route,
+                       "critic": trainer.step.critic_route},
+            "launches": launches, "train_s": train_s, "same_on_every_rank": same,
+            "traffic_per_step": {k: v / (PAR_MINI_STEPS + 1) for k, v in traffic.items()},
+            "update_max_abs_diff": diff, "update_max_rel_diff": rel, "ms_per_step": ms,
+            "metrics_sp": {k: float(v) for k, v in m_sp.items()},
+            "metrics_single": {k: float(v) for k, v in m_single.items()}}
+
+
+def _comp_leg_c(d: str, name: str, batch: int, start_ckpt: str) -> dict:
+    """Completion, one layout of leg c: the full-width trainer under it
+    resumes from phase ``parallel``'s warmed-up checkpoint; a quantized
+    layout records every quantization point's global maximum on this
+    rank's shard of the compared step's batch; then the compared step
+    (deterministic cuDNN, the draws of PAR_SEED), one untimed and
+    COMP_TIMED_STEPS timed steps."""
+    from unittest import mock
+
+    from ofdmgan_tpu_torch.parallel import distributed
+    from ofdmgan_tpu_torch.parallel.gspmd import GSPMDTrainStep
+    dev = _rank_device()
+    seen = []
+    with mock.patch.object(GSPMDTrainStep, "_amax", _recording_amax(seen)):
+        trainer = _full_trainer(f"{d}/{name}", batch, False, dev, strategy="gspmd",
+                                **COMP_LAYOUTS[name])
+    trainer.load_checkpoint(start_ckpt)
+    scales = None
+    if _full_kind(name) == "quant":
+        batch0, _, _ = trainer.step.draw(torch.Generator(device=dev).manual_seed(PAR_SEED))
+        with torch.no_grad():
+            trainer.step.forward(trainer.step.local(batch0)["noisy"])
+        scales = list(seen)
+    _counts_reset()
+    m = _deterministic(lambda: trainer.step(torch.Generator(device=dev).manual_seed(PAR_SEED)))
+    launches = _counts()
+    trainer._gather_state()
+    params, moments = _cpu_params(trainer), _cpu_moments(trainer)
+    same = _same_on_every_rank(trainer)
+    rng = torch.Generator(device=dev).manual_seed(3)
+    trainer.step(rng)   # untimed: cuDNN's algorithm choice and workspaces
+    distributed.reset_traffic()
+    ms, peak = timed_steps(trainer.step, rng, n=COMP_TIMED_STEPS, warmup=0)
+    traffic = {k: v / COMP_TIMED_STEPS for k, v in distributed.traffic.items()}
+    main = distributed.rank() == 0
+    return {"params": params if main else None, "moments": moments if main else None,
+            "scales": scales, "same_on_every_rank": same,
+            "metrics": {k: float(v) for k, v in m.items()}, "launches": launches,
+            "ms_per_step": ms, "peak_memory_gb": peak / 1e9, "traffic_per_step": traffic,
+            "mesh": dict(zip(trainer.mesh.mesh_dim_names, trainer.mesh.shape))}
+
+
+def completion_rank_gloo(d: str, batch: int, start_ckpt: str) -> dict:
+    """Legs b and c of phase ``completion`` on one of two ranks that share
+    the card over gloo."""
+    import gc
+    out = {"b": _comp_leg_b(d), "c": {}}
+    for name in COMP_LAYOUTS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out["c"][name] = _comp_leg_c(d, name, batch, start_ckpt)
+    return out
+
+
+def _scales_within(got: list, want: list, rank: int, n: int, rtol: float) -> float:
+    """The largest relative distance of a rank's quantization-point maxima
+    from the single-device step's (a column-parallel kernel's are its
+    rank's output channels'); raises where the points differ."""
+    if [a for a, _ in got] != [b for b, _ in want]:
+        raise AssertionError("the quantization points differ from the single-device step's")
+    worst = 0.0
+    for (_, x), (_, y) in zip(got, want):
+        y = y if x.numel() == y.numel() else y.chunk(n)[rank]
+        worst = max(worst, float(((x - y).abs() / y.abs().clamp_min(1e-30)).max()))
+    return worst
+
+
+def completion_phase(dev, gen, par_batch: int) -> dict:
+    """Phase ``completion``: what the last slice ported. Leg a trains the
+    mini ``--rtl_qat --residual --act_dtype bfloat16`` recipe 2 x 20 steps
+    through the datagen kernel, holds one step on the card against the same
+    step on the CPU, and an e4m3fn QAT forward's NaN pattern on the card
+    against the CPU's; leg b trains the mini default under gspmd ``sp = 2``
+    on two ranks sharing the card and holds one step against the
+    single-process step; leg c takes the full U-Net at full width under
+    gspmd tp2 and sp2 with ``--quant_bits 8 16``, tp2 and sp2 with
+    ``--fused_decoder`` and dp2 with ``--quant_bits 8 16`` from phase
+    ``parallel``'s warmed-up checkpoint and holds each against the
+    single-device step; leg d takes the packed step at batch 65,536, p = 4
+    and 2, two chunks of 32 each, holds one packed step against the module
+    step on the same batch and times both beside the flat step. Returns the
+    phase line's fields."""
+    import gc
+
+    from ofdmgan_tpu_torch.config import Config
+    from ofdmgan_tpu_torch.models import MiniGenerator
+    from ofdmgan_tpu_torch.models.flat import make_flat_step
+    from ofdmgan_tpu_torch.ops import datagen_kernel as dk
+    from ofdmgan_tpu_torch.ops import packed_step as ps
+    from ofdmgan_tpu_torch.parallel import distributed
+    from ofdmgan_tpu_torch.signal import datagen as sdg
+    from ofdmgan_tpu_torch.training.schedules import make_adam
+    from ofdmgan_tpu_torch.training.trainer import Trainer, build_models
+    from ofdmgan_tpu_torch.training.wgan_gp import LossConfig, TrainStep
+    d = "build/chip_smoke/completion"
+    out, failed = {}, []
+    launches = {"datagen": 0, "critic_grad": 0}
+
+    def add(counts):
+        for k in launches:
+            launches[k] += counts[k]
+
+    # ---- leg a: rtl_qat with bf16 storage
+    t = time.time()
+    base = Config(checkpoint_dir=f"{d}/a/checkpoints", log_dir=f"{d}/a/logs",
+                  export_after_training=False)
+    cfg = dataclasses.replace(base, generator=dataclasses.replace(base.generator,
+                                                                  input_residual=True))
+    g, dd = build_models(cfg, "mini", seed=0, act_dtype="bfloat16", qat=True, rtl_faithful=True)
+    trainer = Trainer(cfg, samples_per_epoch=COMP_STEPS * MAIN_B, val_samples=256, seed=0,
+                      device=dev, generator=g, discriminator=dd, act_dtype="bfloat16")
+    a = trained(trainer, "completion_rtl_qat_bf16", {"datagen": "kernel", "critic": "plain"},
+                {"datagen": 2 * COMP_STEPS, "critic_grad": 0})
+    add(a["launches"])
+    cpu = torch.device("cpu")
+    cpu_gen = torch.Generator().manual_seed(41)
+    batch = sdg.synthetic_batch_from_draws(sdg.make_draws(cpu_gen, MAIN_B, 16), trainer.dg_cfg)
+    alphas = [torch.rand(MAIN_B, generator=cpu_gen) for _ in range(5)]
+    on_card = clone_step(trainer, False, act_dtype="bfloat16")
+    on_cpu = clone_step(trainer, False, device=cpu, act_dtype="bfloat16")
+    start = {n: p.detach().cpu().clone() for n, p in all_params(on_cpu).items()}
+    _deterministic(lambda: on_card.run({k: v.to(dev) for k, v in batch.items()},
+                                       [x.to(dev) for x in alphas]))
+    on_cpu.run(batch, alphas)
+    lr = trainer.config.training.lr_generator
+    got, ref = _cpu_params(on_card), _cpu_params(on_cpu)
+    worst_param = max(float((got[n] - ref[n]).abs().max()) for n in ref)
+    worst_norm = max(float((got[n] - ref[n]).norm() / (ref[n] - start[n]).norm().clamp_min(1e-30))
+                     for n in ref)
+    a["step_vs_cpu"] = {"param_max_abs_diff": worst_param, "param_limit": COMP_PARAM_LR * lr,
+                        "update_norm_rel_diff": worst_norm, "norm_limit": COMP_NORM_RTOL}
+    if not (worst_param <= COMP_PARAM_LR * lr and worst_norm <= COMP_NORM_RTOL):
+        failed.append(f"leg a: the rtl_qat bf16 step on the card lies {worst_param:.3e} "
+                      f"(limit {COMP_PARAM_LR * lr:.1e}) and {worst_norm:.3e} of an update's "
+                      f"norm (limit {COMP_NORM_RTOL}) from the CPU's")
+    # the e4m3fn QAT forward: NaN where the reference's is (everywhere under
+    # qat, nowhere under rtl_faithful alone), on the card as on the CPU
+    x = (torch.randn(MAIN_B, 16, 2, generator=cpu_gen) * 0.5).to(torch.float8_e4m3fn)
+    nan_patterns = {}
+    for mode, kw in (("qat", dict(qat=True)), ("rtl", dict(rtl_faithful=True))):
+        m = MiniGenerator(act_dtype="float8_e4m3fn", input_residual=True, **kw)
+        m.load_state_dict(trainer.generator.state_dict())
+        with torch.no_grad():
+            y_cpu = m(x)
+            y_card = m.to(dev)(x.to(dev)).cpu()
+        same = torch.equal(torch.isnan(y_card), torch.isnan(y_cpu))
+        nan_patterns[mode] = {"nan_share": float(torch.isnan(y_cpu).float().mean()),
+                              "same_on_card": same}
+        want_all = mode == "qat"
+        if not same or bool(torch.isnan(y_cpu).all()) != want_all \
+                or bool(torch.isnan(y_cpu).any()) != want_all:
+            failed.append(f"leg a: the e4m3fn {mode} forward's NaN pattern: {nan_patterns[mode]}")
+    a["e4m3fn"] = nan_patterns
+    a["leg_s"] = time.time() - t
+    out["a"] = a
+    del trainer, on_card, on_cpu
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # ---- leg c's single-device references, from phase parallel's warmed-up
+    # checkpoint: the compared step (deterministic cuDNN) and its timing; the
+    # quantized reference's maxima on the global batch, the fused one's
+    # TF32 control
+    t = time.time()
+    start_ckpt = "build/chip_smoke/parallel/gan_start"
+    refs = {}
+    for kind in ("quant", "fused"):
+        kw = dict(quant_bits=(8, 16)) if kind == "quant" else dict(fused_decoder=True)
+        trainer = _full_trainer(f"{d}/ref_{kind}", par_batch, False, dev, **kw)
+        trainer.load_checkpoint(start_ckpt)
+        ref = {"start": _cpu_params(trainer)}
+        if kind == "quant":
+            seen = []
+
+            def record(m, name, seen=seen):
+                seen.append((name, m.detach().reshape(-1).cpu().clone()))
+                return m
+
+            batch0, _, _ = trainer.step.draw(torch.Generator(device=dev).manual_seed(PAR_SEED))
+            with torch.no_grad():
+                trainer.generator(batch0["noisy"], amax=record)
+            ref["scales"] = seen
+        _counts_reset()
+        m = _deterministic(lambda: trainer.step(torch.Generator(device=dev).manual_seed(PAR_SEED)))
+        add(_counts())
+        ref.update(params=_cpu_params(trainer), moments=_cpu_moments(trainer),
+                   metrics={k: float(v) for k, v in m.items()})
+        if kind == "fused":
+            # how far a change of summation order alone moves the fused
+            # step: the same step with cuDNN's default algorithms
+            trainer.load_checkpoint(start_ckpt)
+            trainer.step(torch.Generator(device=dev).manual_seed(PAR_SEED))
+            torch.cuda.synchronize()
+            ref["default_cudnn"] = worst_update(ref["start"], _cpu_params(trainer),
+                                                ref["params"], _cpu_moments(trainer),
+                                                ref["moments"])
+            trainer.load_checkpoint(start_ckpt)
+            trainer.step.matmul_precision = "tensorfloat32"
+            _deterministic(lambda: trainer.step(
+                torch.Generator(device=dev).manual_seed(PAR_SEED)))
+            trainer.step.matmul_precision = "float32"
+            ref["tf32"] = worst_update(ref["start"], _cpu_params(trainer), ref["params"],
+                                       _cpu_moments(trainer), ref["moments"])
+        trainer.step(trainer.rng)   # untimed
+        ms, peak = timed_steps(trainer.step, trainer.rng, n=COMP_TIMED_STEPS, warmup=0)
+        ref["timed"] = {"ms_per_step": ms, "peak_memory_gb": peak / 1e9}
+        refs[kind] = ref
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    out["ref_s"] = time.time() - t
+
+    # ---- legs b and c on two ranks sharing the card
+    t = time.time()
+    ranks = distributed.launch(completion_rank_gloo, 2, (d, par_batch, start_ckpt),
+                               device="cuda:0", backend="gloo", timeout_s=PAR_TIMEOUT_S)
+    out["bc_s"] = time.time() - t
+    b = [r["b"] for r in ranks]
+    for r, leg in enumerate(b):
+        add(leg["launches"])
+        if not leg["same_on_every_rank"] or leg["routes"] != {"datagen": "kernel",
+                                                                "critic": "plain"} \
+                or leg["launches"]["datagen"] != PAR_MINI_STEPS + 1 \
+                or not leg["update_max_rel_diff"] <= STEP_RTOL:
+            failed.append(f"leg b, rank {r}: same {leg['same_on_every_rank']}, routes "
+                          f"{leg['routes']}, launches {leg['launches']}, "
+                          f"{leg['update_max_rel_diff']:.3e} of a largest update from the "
+                          f"single-process step (limit {STEP_RTOL})")
+    out["b"] = {"ranks": b}
+    out["c"] = {"batch": par_batch, "fused_default_cudnn": refs["fused"]["default_cudnn"]}
+    for name in COMP_LAYOUTS:
+        legs = [r["c"][name] for r in ranks]
+        kind = _full_kind(name)
+        ref = refs[kind]
+        for leg in legs:
+            add(leg["launches"])
+        if not all(leg["same_on_every_rank"] for leg in legs) or \
+                not all(leg["launches"]["datagen"] > 0 for leg in legs):
+            failed.append(f"leg c {name}: ranks equal {[x['same_on_every_rank'] for x in legs]}, "
+                          f"launches {[x['launches'] for x in legs]}")
+        diff, rel = updates_agree(ref["start"], legs[0]["params"], ref["params"], None, "")
+        metric_rel = {k: abs(legs[0]["metrics"][k] - v) / max(abs(v), 1e-12)
+                      for k, v in ref["metrics"].items()}
+        if not all(v <= PAR_METRIC_RTOL for v in metric_rel.values()):
+            failed.append(f"leg c {name}: metrics {legs[0]['metrics']} against the single-device "
+                          f"step's {ref['metrics']} (rtol {PAR_METRIC_RTOL})")
+        entry = {"update_max_abs_diff": diff, "update_max_rel_diff": rel,
+                 "metric_max_rel_diff": max(metric_rel.values()),
+                 "worst": worst_update(ref["start"], legs[0]["params"], ref["params"],
+                                       legs[0]["moments"], ref["moments"])}
+        if kind == "fused":
+            if not rel <= PAR_STEP_RTOL["gan"]:
+                failed.append(f"leg c {name}: {rel:.3e} of a largest update from the "
+                              f"single-device fused step (limit {PAR_STEP_RTOL['gan']})")
+        else:
+            n = legs[0]["mesh"].get("tp", 1)
+            entry["scale_max_rel_diff"] = [_scales_within(leg["scales"], ref["scales"], r, n,
+                                                          COMP_SCALE_RTOL)
+                                           for r, leg in enumerate(legs)]
+            if not all(v <= COMP_SCALE_RTOL for v in entry["scale_max_rel_diff"]):
+                failed.append(f"leg c {name}: quantization-point maxima "
+                              f"{entry['scale_max_rel_diff']} from the single-device step's "
+                              f"(limit {COMP_SCALE_RTOL:.3e})")
+        for leg in legs:
+            for k in ("params", "moments", "scales"):
+                leg.pop(k)
+        entry["ranks"] = legs
+        entry["single_device_timed"] = ref["timed"]
+        out["c"][name] = entry
+    out["c"]["tf32_control"] = refs["fused"]["tf32"]
+    if not refs["fused"]["tf32"]["rel"] > PAR_STEP_RTOL["gan"]:
+        failed.append(f"the fused step at TF32 lies within the gate "
+                      f"({refs['fused']['tf32']['rel']:.3e})")
+
+    # ---- leg d: the packed step at the reference bench's width
+    t = time.time()
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = Config()
+    g0, d0 = build_models(cfg, "mini", seed=0)
+    dg_cfg, loss_cfg = sdg.DatagenConfig(frame_length=16), LossConfig()
+
+    def pair():
+        gg, cc = copy.deepcopy(g0).to(dev), copy.deepcopy(d0).to(dev)
+        return (gg, cc, make_adam(gg.parameters(), 2e-4, (0.0, 0.9)),
+                make_adam(cc.parameters(), 2e-4, (0.0, 0.9)))
+
+    _counts_reset()
+    packed = {}
+    for p in PACKED_PS:
+        gg, cc, og, oc = pair()
+        step = ps.PackedTrainStep(gg, cc, og, oc, dg_cfg, loss_cfg, PACKED_B, p=p,
+                                  scan_steps=PACKED_SCAN, matmul_precision="float32")
+        rng = torch.Generator(device=dev).manual_seed(5)
+        t0 = time.perf_counter()
+        step(rng)
+        torch.cuda.synchronize()
+        first = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        m = step(rng)
+        torch.cuda.synchronize()
+        packed[p] = {"ms_per_step": (time.perf_counter() - t0) / PACKED_SCAN * 1e3,
+                     "first_chunk_ms_per_step": first / PACKED_SCAN * 1e3,
+                     "metrics": {k: float(v) for k, v in m.items()},
+                     "route": step.datagen_route}
+        # from the state two chunks left: one packed step and one module step
+        # on the same batch (the packed batch's [B, L, 2] view) and uniforms
+        mod = TrainStep(copy.deepcopy(gg), copy.deepcopy(cc), None, None, dg_cfg, loss_cfg,
+                        PACKED_B)
+        mod.set_optimizers(*(make_adam(m_.parameters(), 2e-4, (0.0, 0.9))
+                             for m_ in (mod.generator, mod.critic)))
+        for new, old in ((mod.opt_g, og), (mod.opt_d, oc)):
+            new.load_state_dict(*copy.deepcopy(old.state_dict()))
+        start = {n: q.detach().clone() for n, q in all_params(mod).items()}
+        batch0, alphas = step.draw(rng)
+        step.run(batch0, alphas)
+        _deterministic(lambda: mod.run({k: v.view(PACKED_B, 16, 2) for k, v in batch0.items()
+                                        if k in ("noisy", "clean")}, alphas))
+        try:
+            packed[p]["update_max_abs_diff"], packed[p]["update_max_rel_diff"] = updates_agree(
+                start, all_params(step), all_params(mod), STEP_RTOL,
+                f"the packed (p = {p}) and module steps")
+        except AssertionError as e:
+            failed.append(str(e))
+        del step, mod
+    want = len(PACKED_PS) * (2 * PACKED_SCAN + 1)
+    if dk.launches != want:
+        failed.append(f"leg d: {dk.launches} datagen launches, not {want}")
+    # the flat and module steps at the same batch, in this process
+    times = {}
+    for name in ("flat", "module"):
+        gg, cc, og, oc = pair()
+        flat = make_flat_step(gg, cc, 16) if name == "flat" else None
+        step = TrainStep(gg, cc, og, oc, dg_cfg, loss_cfg, PACKED_B, flat=flat)
+        rng = torch.Generator(device=dev).manual_seed(6)
+        ms, _ = timed_steps(step, rng, n=PACKED_TIMED_STEPS, warmup=2)
+        times[name] = {"ms_per_step": ms, "routes": (step.datagen_route, step.critic_route)}
+    add(_counts())
+    out["d"] = {"packed": packed, "others": times,
+                "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9,
+                "leg_s": time.time() - t}
+    out["launches"] = launches
+    if failed:
+        print(json.dumps({"phase": "completion", "failed_gates": failed, **out}, default=str),
+              flush=True)
+        raise AssertionError("; ".join(failed))
     return out
 
 
@@ -2804,7 +3313,13 @@ def main() -> int:
     lay = layout_phase(dev, gen)
     log("layout", t, **lay)
 
-    # ---- 13. report
+    # ---- 13. what the last slice ported: QAT with a storage format, mini
+    # sp, the quantized and fused generators under tp and sp, the packed step
+    t = time.time()
+    comp = completion_phase(dev, gen, par["batch"]["global"])
+    log("completion", t, **comp)
+
+    # ---- 14. report
     db, dby = datagen_bound_ms(MAIN_B, 16)
     cb, cby = critic_bound_ms(MAIN_B)
     dg_main, cr_main = dg_times[f"L16_B{MAIN_B}"], cr_times[MAIN_B]
@@ -2822,7 +3337,8 @@ def main() -> int:
                               "verify": verify_launches["datagen"],
                               "serve": serve_launches["datagen"],
                               "parallel": par["launches"]["datagen"],
-                              "layout": lay["launches"]["datagen"]}},
+                              "layout": lay["launches"]["datagen"],
+                              "completion": comp["launches"]["datagen"]}},
         {"name": "critic_grad", "route": "cuda", "source": "ofdmgan_tpu_torch/csrc/critic_grad.cu",
          "replaces": "ofdmgan_tpu/ops/pallas_critic.py:195", "launches": launches["critic_grad"],
          "max_abs_err": critic_err[MAIN_B], "ms": cr_main["ms"],
@@ -2836,9 +3352,10 @@ def main() -> int:
                               "verify": verify_launches["critic_grad"],
                               "serve": serve_launches["critic_grad"],
                               "parallel": par["launches"]["critic_grad"],
-                              "layout": lay["launches"]["critic_grad"]}},
+                              "layout": lay["launches"]["critic_grad"],
+                              "completion": comp["launches"]["critic_grad"]}},
     ]
-    log("total", t0)
+    log("total", t0, retraced_windows=RETRACED)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

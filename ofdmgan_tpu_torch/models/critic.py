@@ -7,7 +7,10 @@
 
 521 parameters, no normalisation, sum pooling in float32. ``act_dtype``
 stores conv1's activation in that format (reference ``critic.py:39-60``);
-inputs in a storage format are read upcast to float32.
+inputs in a storage format are read upcast to float32. A ``conv_fn`` given
+to ``forward`` computes each convolution (``generator.apply_conv``), and
+``pool`` takes the sum over length further (across the processes that hold
+the frame's other pieces), as the full critic's do.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .generator import FP8_DTYPES, _conv, as_dtype, read_stored, storage_dtype
+from .generator import FP8_DTYPES, _conv, apply_conv, as_dtype, read_stored, storage_dtype
 
 
 class MiniDiscriminator(nn.Module):
@@ -31,7 +34,8 @@ class MiniDiscriminator(nn.Module):
         nn.init.xavier_uniform_(self.dense.weight)
         nn.init.zeros_(self.dense.bias)
 
-    def forward(self, candidate: torch.Tensor, condition: torch.Tensor) -> torch.Tensor:
+    def forward(self, candidate: torch.Tensor, condition: torch.Tensor, conv_fn=None,
+                pool=None) -> torch.Tensor:
         """``[B, L, 2] x [B, L, 2] -> [B, 1]`` critic score."""
         dt = self.conv1.weight.dtype
         if candidate.dtype == condition.dtype:   # read by the conv, fp8 through bf16
@@ -39,11 +43,13 @@ class MiniDiscriminator(nn.Module):
         else:   # a mixed call is promoted first, fp8 straight to float32 (critic.py:41-49)
             pair = [as_dtype(candidate, dt), as_dtype(condition, dt)]
         h = torch.cat(pair, dim=-1).transpose(1, 2)
-        h = F.leaky_relu(self.conv1(h), self.leaky_slope)
+        h = F.leaky_relu(apply_conv(self.conv1, "conv1", h, conv_fn), self.leaky_slope)
         if self.act_dtype is not None:
             h = h.to(self.act_dtype)
-        h = F.leaky_relu(self.conv2(read_stored(h, dt)), self.leaky_slope)
-        return self.dense(as_dtype(h, torch.float32).sum(dim=-1))
+        h = F.leaky_relu(apply_conv(self.conv2, "conv2", read_stored(h, dt), conv_fn),
+                         self.leaky_slope)
+        pooled = as_dtype(h, torch.float32).sum(dim=-1)
+        return self.dense(pooled if pool is None else pool(pooled))
 
 
 def compute_gradient_penalty(critic: nn.Module, real: torch.Tensor, fake: torch.Tensor,

@@ -16,11 +16,13 @@ resolution). Submodule names are the reference's layer names
 Both models take and return channels-last ``[B, L, 2]`` and run
 channels-first inside: each transposes once at its boundary. ``encode`` and
 ``decode`` are separate so that the two stages of the pipeline
-(``parallel/pipeline.py``) apply them apart. A ``conv_fn(conv, name, h)``
-given to either model's forward computes each convolution in place of the
-layer's own call (the tensor- and sequence-parallel convolutions of
-``parallel/gspmd.py``), and the critic's ``pool`` takes its sum over
-length further (across the processes that hold the frame's other pieces).
+(``parallel/pipeline.py``) apply them apart. A ``conv_fn(name, h, weight,
+bias, stride, (left, right) padding)`` given to either model's forward
+computes each convolution in place of ``F.conv1d`` (the tensor- and
+sequence-parallel convolutions of ``parallel/gspmd.py``; the weight it gets
+is the fake-quantized one under ``weight_bits``), and the critic's ``pool``
+takes its sum over length further (across the processes that hold the
+frame's other pieces).
 ``unet_param_shardings`` and ``unet_param_shardings_rowparallel`` are the
 reference's tensor-parallel rules (``full_unet.py:185-251``).
 
@@ -30,7 +32,12 @@ estimator: every conv kernel fake-quantized per output channel to
 ``weight_bits``, every stored activation (the input, each LeakyReLU output,
 each skip sum) fake-quantized per tensor to ``act_bits`` by its own max.
 The parameters are the float model's, under the same names, so any
-checkpoint runs under either forward.
+checkpoint runs under either forward. ``amax(local_max, name)`` given to
+the generator's forward turns each of those maxima into the global one
+where a process holds a shard of the tensor (``parallel/gspmd.py``): it
+gets the largest magnitude of ``"<layer>.weight"``'s shard per output
+channel, of the input (``"input"``), of a layer's LeakyReLU output (the
+layer's name) and of a skip sum (``"skip"``).
 
 Inputs in a storage format (bf16, fp8) are read upcast to the weights'
 float32, as flax's promotion reads them in the reference.
@@ -45,8 +52,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.dense_conv import upsample_nearest_2x
-from ..quant.fakequant import fake_quantize_auto
-from .generator import _conv, as_dtype
+from ..quant.fakequant import fake_quantize, fake_quantize_auto
+from .generator import _conv, apply_conv, as_dtype
 
 
 def full_unet_layer_names(levels: int = 5) -> List[str]:
@@ -91,47 +98,60 @@ class FullUNetGenerator(nn.Module):
             cin = out_w
         self.final = _conv(cin, output_channels, 1)
 
-    def _quant_act(self, h: torch.Tensor) -> torch.Tensor:
-        return fake_quantize_auto(h, self.act_bits) if self.act_bits else h
+    def _fake_quant(self, t: torch.Tensor, bits: int, name: str, amax,
+                    per_channel: bool = False) -> torch.Tensor:
+        """``fake_quantize_auto`` of ``t``, its scale from the global max
+        where ``amax`` is given."""
+        if amax is None:
+            return fake_quantize_auto(t, bits, per_channel, channel_axis=0)
+        with torch.no_grad():
+            m = t.abs().amax(dim=(1, 2), keepdim=True) if per_channel else t.abs().max()
+            scale = torch.clamp(amax(m, name), min=1e-8) / (2 ** (bits - 1) - 1)
+        return fake_quantize(t, scale, bits)
 
-    def _layer(self, name: str, h: torch.Tensor, conv_fn=None) -> torch.Tensor:
+    def _quant_act(self, h: torch.Tensor, name: str, amax=None) -> torch.Tensor:
+        return self._fake_quant(h, self.act_bits, name, amax) if self.act_bits else h
+
+    def _layer(self, name: str, h: torch.Tensor, conv_fn=None, amax=None) -> torch.Tensor:
         """Conv ``name``, then LeakyReLU and the activation's quantization."""
-        return self._quant_act(F.leaky_relu(self._conv(name, h, conv_fn), self.leaky_slope))
+        return self._quant_act(F.leaky_relu(self._conv(name, h, conv_fn, amax), self.leaky_slope),
+                               name, amax)
 
-    def _conv(self, name: str, h: torch.Tensor, conv_fn=None) -> torch.Tensor:
+    def _conv(self, name: str, h: torch.Tensor, conv_fn=None, amax=None) -> torch.Tensor:
         conv = getattr(self, name)
-        if conv_fn is not None:
-            return conv_fn(conv, name, h)
-        if not self.weight_bits:
-            return conv(h)
-        w = fake_quantize_auto(conv.weight, self.weight_bits, per_channel=True, channel_axis=0)
-        return F.conv1d(h, w, conv.bias, conv.stride, 1)
+        w = None
+        if self.weight_bits:
+            w = self._fake_quant(conv.weight, self.weight_bits, f"{name}.weight", amax,
+                                 per_channel=True)
+        return apply_conv(conv, name, h, conv_fn, w)
 
-    def encode(self, x: torch.Tensor, conv_fn=None) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    def encode(self, x: torch.Tensor, conv_fn=None,
+               amax=None) -> Tuple[torch.Tensor, List[torch.Tensor]]:
         """The strided encoder: ``[B, L, 2]`` -> the bottleneck input and
         every level's skip activation, channels-first."""
         check_frame_length(x.shape[1], self.levels)
-        h = self._quant_act(as_dtype(x.transpose(1, 2), self.enc1_1.weight.dtype))
+        h = self._quant_act(as_dtype(x.transpose(1, 2), self.enc1_1.weight.dtype), "input", amax)
         skips = []
         for i in range(self.levels):
-            h = self._layer(f"enc{i+1}_1", h, conv_fn)
-            h = self._layer(f"enc{i+1}_2", h, conv_fn)
+            h = self._layer(f"enc{i+1}_1", h, conv_fn, amax)
+            h = self._layer(f"enc{i+1}_2", h, conv_fn, amax)
             skips.append(h)
         return h, skips
 
-    def decode(self, h: torch.Tensor, skips: List[torch.Tensor], conv_fn=None) -> torch.Tensor:
+    def decode(self, h: torch.Tensor, skips: List[torch.Tensor], conv_fn=None,
+               amax=None) -> torch.Tensor:
         """The bottleneck and the decoder, consuming the skips: -> ``[B, L, 2]``."""
-        h = self._layer("bottle1", h, conv_fn)
-        h = self._layer("bottle2", h, conv_fn)
+        h = self._layer("bottle1", h, conv_fn, amax)
+        h = self._layer("bottle2", h, conv_fn, amax)
         for i in range(self.levels):
-            h = self._layer(f"dec{i+1}_1", upsample_nearest_2x(h), conv_fn)
-            h = self._layer(f"dec{i+1}_2", h, conv_fn)
+            h = self._layer(f"dec{i+1}_1", upsample_nearest_2x(h), conv_fn, amax)
+            h = self._layer(f"dec{i+1}_2", h, conv_fn, amax)
             if i < self.levels - 1:
-                h = self._quant_act(h + skips[self.levels - 2 - i])
-        return torch.tanh(self._conv("final", h, conv_fn)).transpose(1, 2)
+                h = self._quant_act(h + skips[self.levels - 2 - i], "skip", amax)
+        return torch.tanh(self._conv("final", h, conv_fn, amax)).transpose(1, 2)
 
-    def forward(self, x: torch.Tensor, conv_fn=None) -> torch.Tensor:
-        return self.decode(*self.encode(x, conv_fn), conv_fn)
+    def forward(self, x: torch.Tensor, conv_fn=None, amax=None) -> torch.Tensor:
+        return self.decode(*self.encode(x, conv_fn, amax), conv_fn, amax)
 
 
 class FullDiscriminator(nn.Module):
@@ -159,9 +179,8 @@ class FullDiscriminator(nn.Module):
         dt = self.conv1.weight.dtype
         h = torch.cat([as_dtype(candidate, dt), as_dtype(condition, dt)], dim=-1).transpose(1, 2)
         for i in range(self.levels):
-            conv = getattr(self, f"conv{i+1}")
-            h = F.leaky_relu(conv(h) if conv_fn is None else conv_fn(conv, f"conv{i+1}", h),
-                             self.leaky_slope)
+            name = f"conv{i+1}"
+            h = F.leaky_relu(apply_conv(getattr(self, name), name, h, conv_fn), self.leaky_slope)
         pooled = as_dtype(h, torch.float32).sum(dim=-1)
         return self.dense(pooled if pool is None else pool(pooled))
 

@@ -22,7 +22,11 @@ H100 the fused forward trains slower than the module's (PERF.md section 5).
 
 ``act_dtype`` (float32 or bfloat16) casts the activations and the
 operands, kernels and biases; the parameters themselves stay float32, so
-their gradients arrive in float32 through the casts.
+their gradients arrive in float32 through the casts. A ``conv_fn(name, h,
+weight, bias, stride, (left, right) padding)`` given to the generator's
+apply computes each convolution, the two k = 2 halves of a fused
+``dec*_1`` each under that layer's name (the tensor- and
+sequence-parallel convolutions of ``parallel/gspmd.py``).
 """
 
 from __future__ import annotations
@@ -33,6 +37,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .generator import conv1d_padded
+
 _APPLY_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -41,46 +47,54 @@ def _check_act_dtype(act_dtype: torch.dtype) -> None:
         raise ValueError(f"act_dtype must be float32 or bfloat16, not {act_dtype}")
 
 
-def _conv(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stride: int = 1) -> torch.Tensor:
-    return F.conv1d(h, w, b, stride=stride, padding=1)
+def _conv(name: str, h: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stride: int = 1,
+          pads=(1, 1)) -> torch.Tensor:
+    return conv1d_padded(h, w, b, stride, pads)
 
 
-def _upconv_fused(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def _upconv_fused(h: torch.Tensor, w: torch.Tensor, b: torch.Tensor, conv=None,
+                  name: str = "") -> torch.Tensor:
     """``upsample_nearest_2x`` then conv(k = 3, pad 1), as two interleaved
     k = 2 convs. ``w``: the ``dec*_1`` weight ``[C_out, C_in, 3]``."""
+    conv = conv or _conv
     w0, w1, w2 = w[..., 0], w[..., 1], w[..., 2]
-    even = F.conv1d(F.pad(h, (1, 0)), torch.stack([w0, w1 + w2], dim=-1), b)  # pads (1, 0)
-    odd = F.conv1d(F.pad(h, (0, 1)), torch.stack([w0 + w1, w2], dim=-1), b)   # pads (0, 1)
+    even = conv(name, h, torch.stack([w0, w1 + w2], dim=-1), b, 1, (1, 0))
+    odd = conv(name, h, torch.stack([w0 + w1, w2], dim=-1), b, 1, (0, 1))
     n, c, l = even.shape
     return torch.stack([even, odd], dim=-1).reshape(n, c, 2 * l)
 
 
 def make_unet_infer_apply(levels: int = 5, leaky_slope: float = 0.2,
                           act_dtype: torch.dtype = torch.bfloat16) -> Callable:
-    """``apply(generator, x) -> y`` over a ``FullUNetGenerator``'s
-    parameters, through the fused k = 2-pair decoder."""
+    """``apply(generator, x, conv_fn=None) -> y`` over a
+    ``FullUNetGenerator``'s parameters, through the fused k = 2-pair
+    decoder."""
     _check_act_dtype(act_dtype)
 
-    def apply(gen: nn.Module, x: torch.Tensor) -> torch.Tensor:
-        def wb(name):
-            layer = getattr(gen, name)
-            return layer.weight.to(act_dtype), layer.bias.to(act_dtype)
+    def apply(gen: nn.Module, x: torch.Tensor, conv_fn=None) -> torch.Tensor:
+        conv = conv_fn or _conv
+
+        def layer(name, h, stride=1):
+            w = getattr(gen, name)
+            return conv(name, h, w.weight.to(act_dtype), w.bias.to(act_dtype), stride, (1, 1))
 
         act = lambda h: F.leaky_relu(h, leaky_slope)  # noqa: E731
         h = x.to(act_dtype).transpose(1, 2)
         skips = []
         for i in range(levels):
-            h = act(_conv(h, *wb(f"enc{i+1}_1"), stride=2))
-            h = act(_conv(h, *wb(f"enc{i+1}_2")))
+            h = act(layer(f"enc{i+1}_1", h, stride=2))
+            h = act(layer(f"enc{i+1}_2", h))
             skips.append(h)
-        h = act(_conv(h, *wb("bottle1")))
-        h = act(_conv(h, *wb("bottle2")))
+        h = act(layer("bottle1", h))
+        h = act(layer("bottle2", h))
         for i in range(levels):
-            h = act(_upconv_fused(h, *wb(f"dec{i+1}_1")))
-            h = act(_conv(h, *wb(f"dec{i+1}_2")))
+            dec = getattr(gen, f"dec{i+1}_1")
+            h = act(_upconv_fused(h, dec.weight.to(act_dtype), dec.bias.to(act_dtype), conv,
+                                  f"dec{i+1}_1"))
+            h = act(layer(f"dec{i+1}_2", h))
             if i < levels - 1:
                 h = h + skips[levels - 2 - i]
-        return torch.tanh(_conv(h, *wb("final"))).transpose(1, 2)
+        return torch.tanh(layer("final", h)).transpose(1, 2)
 
     return apply
 
@@ -96,8 +110,8 @@ def make_full_critic_apply(levels: int = 5, leaky_slope: float = 0.2,
         h = torch.cat([candidate.to(act_dtype), condition.to(act_dtype)], dim=-1).transpose(1, 2)
         for i in range(levels):
             layer = getattr(critic, f"conv{i+1}")
-            h = F.leaky_relu(_conv(h, layer.weight.to(act_dtype), layer.bias.to(act_dtype),
-                                   stride=2), leaky_slope)
+            h = F.leaky_relu(_conv(f"conv{i+1}", h, layer.weight.to(act_dtype),
+                                   layer.bias.to(act_dtype), stride=2), leaky_slope)
         pooled = h.sum(dim=-1, dtype=torch.float32)
         return pooled @ critic.dense.weight.float().T + critic.dense.bias.float()
 

@@ -22,8 +22,9 @@ view. Here every rank is one process, and ``torch.distributed`` joins them:
   package places one host value on every device); ``process_local_scalar``
   reads rank 0's value of a scalar on every rank.
 
-The collectives (``all_reduce``, ``broadcast``, ``all_gather``, ``send``,
-``recv``) count the bytes they move in ``traffic``. NCCL refuses two ranks
+The collectives (``all_reduce``, a sum or a maximum, ``broadcast``,
+``all_gather``, ``send``, ``recv``) count the bytes they move in
+``traffic``. NCCL refuses two ranks
 on one GPU, so a single card runs its multi-rank legs over gloo, whose CUDA
 support is ``all_reduce`` and ``broadcast`` alone: the helpers move every
 other CUDA payload through host memory there, and count those bytes under
@@ -149,11 +150,12 @@ def _staged(t: torch.Tensor, group) -> bool:
     return t.is_cuda and dist.get_backend(group) == "gloo"
 
 
-def all_reduce(t: torch.Tensor, group=None) -> torch.Tensor:
-    """Sum ``t`` over ``group`` in place (gloo and NCCL both take CUDA
-    tensors here); returns ``t``."""
+def all_reduce(t: torch.Tensor, group=None, op: str = "sum") -> torch.Tensor:
+    """Sum ``t`` over ``group`` in place, or with ``op="max"`` take its
+    elementwise maximum (gloo and NCCL both take CUDA tensors here);
+    returns ``t``."""
     _count(t, False)
-    dist.all_reduce(t, group=group)
+    dist.all_reduce(t, op={"sum": dist.ReduceOp.SUM, "max": dist.ReduceOp.MAX}[op], group=group)
     return t
 
 

@@ -23,27 +23,54 @@ the single-device step on the same draws, on any layout:
   partial outputs through ``g`` (sum forward, identity backward) and add the
   replicated bias after it. ``f``'s backward is ``g`` and ``g``'s is ``f``,
   so the penalty's double backward goes through them too. The critic is
-  replicated, as the reference's trainer leaves it.
-* **sp**: the length axis of every ``[B, C, L]`` activation of both full
-  models is sharded. Each convolution first takes its halo from the
-  neighbouring ranks (``padding`` samples on the left and ``kernel - stride
-  - padding`` on the right: one and one at stride 1, the left one alone for
-  the stride-2 encoder convolutions), zeros at the frame's ends; the
-  upsampler is local. The critic's sum over length, the penalty's per-frame
-  sum of squares and the L1 term's mean are summed over ``sp`` through
-  ``g``. The halo exchange's backward is its adjoint (each halo's gradient
+  replicated, as the reference's trainer leaves it. The fused decoder's
+  ``dec*_1`` (two k = 2 convolutions of the un-upsampled input,
+  ``models/unet_infer.py``) is column-parallel like the layer it fuses:
+  both halves are built from the rank's output channels of the kernel and
+  each takes its input through ``f``.
+* **sp**: the length axis of every ``[B, C, L]`` activation of both models
+  (the full pair or the mini pair) is sharded. Each convolution first
+  takes its halo from the neighbouring ranks (its left padding in samples
+  on the left and ``kernel - stride - left`` on the right: one and one at
+  k = 3, stride 1; the left one alone for the stride-2 convolutions; one
+  on the left or the right for the fused decoder's k = 2 halves), zeros at
+  the frame's ends; the upsamplers and the fused decoder's interleave are
+  local. The critic's sum over length, the penalty's per-frame sum of
+  squares and the L1 term's mean are summed over ``sp`` through ``g``.
+  The halo exchange's backward is its adjoint (each halo's gradient
   returned to its owner and added), whose backward is the exchange again,
   so every backward is itself differentiable. Every convolution parameter
   then holds a partial gradient, summed over ``sp`` before the ``dp`` mean.
+  The critic kernel needs whole frames, and the reference's GSPMD step
+  never calls it: under ``sp`` the critic's gradient is autograd's.
+
+Quantization (``--quant_bits``): the reference's step is one global
+program, so the per-tensor activation scale of its quantized U-Net
+(``fake_quantize_auto``) is the largest magnitude over the global batch
+and the whole frame, and a row-parallel kernel's per-output-channel weight
+scale is taken over all its input channels. Each rank here holds a shard,
+so the generator's ``amax`` hook all-reduces each local maximum (MAX,
+``distributed.all_reduce``): an activation's over ``dp`` and ``sp`` always,
+and over ``tp`` after a column-parallel layer (whose output is sharded by
+channel); a row-parallel kernel's over ``tp``. The Q1.7/Q8.8 steps of the
+mini pair's ``qat`` are fixed and need no collective. The data-parallel
+step of ``parallel/mesh.py`` keeps its per-replica scales, as the
+reference's ``shard_map`` step does.
+
+``act_dtype``: the reference's trainer builds its GSPMD step without the
+setting (``trainer.py:323-330``), so its batch is never cast to the
+storage format. The trainer here passes none either: the full U-Net's
+GSPMD step computes the same function with and without the flag, the mini
+pair keeps the storage of its own modules, and the fused decoder the
+storage of its apply, as there.
 
 The reference's refusals are kept: a tensor-sharded kernel under ``sp``
 raises (``gspmd.py:89-116``): the JAX package refuses sp x tp because XLA's
 SPMD partitioner miscompiles those convolutions; torch has no such
 partitioner, and the port refuses it only because the JAX package does,
-adding no feature the JAX package lacks. The trainer's refusals
-(``trainer.py:291-320``) are in ``training/trainer.py``. Not ported: ``sp``
-for the mini pair, and ``tp``/``sp`` with a quantized, fused or
-``act_dtype`` generator (these raise ``NotImplementedError``).
+adding no feature the JAX package lacks; ``tp`` needs the full U-Net (its
+rule keys on the U-Net's layer names). The trainer's refusals
+(``trainer.py:291-320``) are in ``training/trainer.py``.
 """
 
 from __future__ import annotations
@@ -59,7 +86,8 @@ from torch import nn
 from . import distributed
 from .distributed import CopyToGroup, ReduceFromGroup
 from .mesh import MeshShard, axis_group, axis_index, axis_size
-from ..models.full_unet import TP_COLUMN, TP_ROW, FullDiscriminator, FullUNetGenerator
+from ..models.full_unet import TP_COLUMN, TP_ROW, FullUNetGenerator
+from ..models.generator import conv1d_padded
 from ..signal.datagen import DatagenConfig
 from ..training.schedules import AdamStepLR
 from ..training.wgan_gp import LossConfig, TrainStep
@@ -123,35 +151,37 @@ class HaloAdjoint(torch.autograd.Function):
 
 
 # ------------------------------------------------------------ sharded layers
-def tp_conv(spec: Dict[str, Optional[int]], group, conv: nn.Conv1d, name: str,
-            h: torch.Tensor) -> torch.Tensor:
-    """Layer ``name``'s convolution under ``spec`` on this rank's shard of
-    it: column-parallel (a replicated input, a channel-sharded output),
+def tp_conv(spec: Dict[str, Optional[int]], group, name: str, h: torch.Tensor,
+            w: torch.Tensor, b: torch.Tensor, stride: int, pads) -> torch.Tensor:
+    """Layer ``name``'s convolution (this rank's shard ``w``, ``b`` of its
+    parameters, ``pads`` its (left, right) zero padding) under ``spec``:
+    column-parallel (a replicated input, a channel-sharded output),
     row-parallel (a channel-sharded or replicated input, a replicated
     output) or replicated."""
-    w, b, s, p = conv.weight, conv.bias, conv.stride[0], conv.padding[0]
     mode = spec.get(f"{name}.weight")
     if mode == TP_COLUMN:
         if h.shape[1] != w.shape[1]:
             raise ValueError(f"{name}: a column-parallel layer needs a replicated input")
-        return F.conv1d(CopyToGroup.apply(h, group), w, b, s, p)
+        return conv1d_padded(CopyToGroup.apply(h, group), w, b, stride, pads)
     if mode == TP_ROW:
         if h.shape[1] != w.shape[1]:   # a replicated input: this rank's channels of it
             rank, size = _neighbours(group)
             h = CopyToGroup.apply(h, group).chunk(size, 1)[rank]
-        return ReduceFromGroup.apply(F.conv1d(h, w, None, s, p), group) + b[:, None]
+        return ReduceFromGroup.apply(conv1d_padded(h, w, None, stride, pads), group) + b[:, None]
     if h.shape[1] != w.shape[1]:
         raise ValueError(f"{name}: a replicated layer needs a replicated input")
-    return conv(h)
+    return conv1d_padded(h, w, b, stride, pads)
 
 
-def sp_conv(group, conv: nn.Conv1d, name: str, h: torch.Tensor) -> torch.Tensor:
-    """``conv`` on this rank's piece of the length axis, its halo first."""
-    k, s, p = conv.kernel_size[0], conv.stride[0], conv.padding[0]
-    if h.shape[-1] % s:
-        raise ValueError(f"{name}: a piece of {h.shape[-1]} samples at stride {s}")
-    ext = HaloExchange.apply(h, p, max(0, k - s - p), group)
-    return F.conv1d(ext, conv.weight, conv.bias, s, 0)
+def sp_conv(group, name: str, h: torch.Tensor, w: torch.Tensor, b: torch.Tensor, stride: int,
+            pads) -> torch.Tensor:
+    """Layer ``name``'s convolution on this rank's piece of the length
+    axis, its halo first."""
+    if h.shape[-1] % stride:
+        raise ValueError(f"{name}: a piece of {h.shape[-1]} samples at stride {stride}")
+    left = pads[0]
+    ext = HaloExchange.apply(h, left, max(0, w.shape[-1] - stride - left), group)
+    return F.conv1d(ext, w, b, stride, 0)
 
 
 def _set_param(module: nn.Module, name: str, value: torch.Tensor) -> None:
@@ -225,28 +255,26 @@ class GSPMDTrainStep:
         sharded = any(d is not None for d in self.spec.values())
         if sharded and self.sp > 1:
             raise ValueError(SP_TP_REFUSAL)
-        if (self.tp > 1 or self.sp > 1) and not isinstance(generator, FullUNetGenerator):
-            raise ValueError("tensor_parallel/seq_parallel > 1 require the full U-Net family "
-                             "(--model full): the sharding rules key on its layer names")
-        if self.sp > 1 and not isinstance(critic, FullDiscriminator):
-            raise NotImplementedError("sequence parallelism of another critic than the full "
-                                      "U-Net's is not ported")
-        if (self.tp > 1 or self.sp > 1) and (
-                generator.weight_bits or generator.act_bits or step_kw.get("gen_forward")
-                or step_kw.get("act_dtype") is not None):
-            raise NotImplementedError("tp/sp with a quantized, fused or act_dtype generator "
-                                      "is not ported")
+        if self.tp > 1 and not isinstance(generator, FullUNetGenerator):
+            raise ValueError("tensor_parallel > 1 requires the full U-Net family (--model full): "
+                             "the Megatron sharding rule keys on its layer names")
         self.tp_group, self.sp_group = axis_group(mesh, "tp"), axis_group(mesh, "sp")
+        self.dp_group = axis_group(mesh, "dp")
         if sharded:
             self.local_generator = shard_module(generator, self.spec, self.tp_index, self.tp)
             opt_g_local = _adam_like(opt_g, self.local_generator.parameters())
         else:
             self.local_generator, opt_g_local = generator, opt_g
         self.full_generator = generator
-        if sharded:
-            step_kw["gen_forward"] = lambda g, x: g(x, conv_fn=self._tp_conv)
-        elif self.sp > 1:
-            step_kw["gen_forward"] = lambda g, x: g(x, conv_fn=self._sp_conv)
+        conv_fn = self._tp_conv if sharded else self._sp_conv if self.sp > 1 else None
+        gen_kw = {} if conv_fn is None else {"conv_fn": conv_fn}
+        if getattr(generator, "weight_bits", 0) or getattr(generator, "act_bits", 0):
+            gen_kw["amax"] = self._amax
+        forward = step_kw.get("gen_forward")
+        if gen_kw:
+            step_kw["gen_forward"] = (lambda g, x: forward(g, x, **gen_kw)) if forward else \
+                (lambda g, x: g(x, **gen_kw))
+        if self.sp > 1:
             step_kw["critic_forward"] = lambda c, a, b: c(a, b, conv_fn=self._sp_conv,
                                                           pool=self._sp_pool)
         self.step = TrainStep(self.local_generator, critic, opt_g_local, opt_d, dg_cfg,
@@ -265,14 +293,28 @@ class GSPMDTrainStep:
         else:
             self.place(self.full_generator, opt_g)
 
-    def _tp_conv(self, conv, name, h):
-        return tp_conv(self.spec, self.tp_group, conv, name, h)
+    def _tp_conv(self, name, h, w, b, stride, pads):
+        return tp_conv(self.spec, self.tp_group, name, h, w, b, stride, pads)
 
-    def _sp_conv(self, conv, name, h):
-        return sp_conv(self.sp_group, conv, name, h)
+    def _sp_conv(self, name, h, w, b, stride, pads):
+        return sp_conv(self.sp_group, name, h, w, b, stride, pads)
 
     def _sp_pool(self, pooled):
         return ReduceFromGroup.apply(pooled, self.sp_group)
+
+    def _amax(self, m: torch.Tensor, name: str) -> torch.Tensor:
+        """The global maximum of the quantized generator's local maximum
+        ``m`` of ``name`` (see the module's docstring)."""
+        if name.endswith(".weight"):
+            groups = [self.tp_group] if self.spec.get(name) == TP_ROW else []
+        else:
+            groups = [self.dp_group, self.sp_group]
+            if self.spec.get(f"{name}.weight") == TP_COLUMN:
+                groups.append(self.tp_group)
+        for group in groups:
+            if group is not None and dist.get_world_size(group) > 1:
+                distributed.all_reduce(m, group, op="max")
+        return m
 
     def local(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """This rank's shard of a global batch: its ``dp`` slice of the

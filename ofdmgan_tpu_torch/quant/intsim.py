@@ -229,3 +229,24 @@ def _discriminator(iparams: IntDiscParams, cand: torch.Tensor, cond: torch.Tenso
     else:
         acc = ((prod.sum(dim=-1).to(torch.int32) + 64) >> 7) + b
     return _sat16(acc)
+
+
+def quantization_error_report(params, x_float: torch.Tensor, mode: str = "rtl") -> dict:
+    """The integer datapath against the float mini generator on a batch of
+    frames ``[B, L, 2]`` (reference ``intsim.py:230-247``): the MSE and the
+    largest error in float units, and the float output's RMS. ``params``: a
+    ``MiniGenerator`` of the port or a flax-layout tree; the float forward is
+    the default generator's (tanh head) with those parameters."""
+    from ..models import MiniGenerator
+    from ..utils.jax_params import from_jax_params
+
+    gen = MiniGenerator().to(x_float.device)
+    gen.load_state_dict(params.state_dict() if isinstance(params, torch.nn.Module)
+                        else from_jax_params(params))
+    with torch.no_grad():
+        y_float = gen(x_float)
+    ip = quantize_weights_rtl(params, "generator")
+    y_int = q88_to_float(generator_int_forward(ip, float_to_q88(x_float), mode))
+    err = y_int - y_float
+    return {"mse": float((err ** 2).mean()), "max_abs": float(err.abs().max()),
+            "rms_float": float((y_float ** 2).mean().sqrt())}

@@ -51,13 +51,22 @@ parallelism the step trains shards of the generator, gathered back into
 the full one after each epoch, and after each step with an EMA); rank 0
 alone writes checkpoints, the JSONL metrics and the export. Resume and warm
 start load on every rank and place the state under the step's sharding.
+As the reference's trainer, ``"gspmd"`` builds its step without
+``act_dtype`` (``trainer.py:323-330``: the batch is not cast; the mini pair
+keeps its modules' storage and the fused decoder its apply's), and ``"pp"``
+passes on neither ``act_dtype`` nor ``matmul_precision``
+(``trainer.py:337-366``): both are accepted and change nothing there.
 
 The models are the mini pair of the configuration unless the caller
 injects another family (``generator``/``discriminator``, as the reference's
 ``trainer.py:86-126``; ``build_models`` makes either family from a seed,
 the mini generator with ``qat``/``rtl_faithful``, Q1.7/Q8.8 fake
-quantization and the RTL's operations, and the full U-Net with
-``quant_bits``, the int8 export's quantization).
+quantization and the RTL's operations, with or without an ``act_dtype``,
+and the full U-Net with ``quant_bits``, the int8 export's quantization).
+The quantized full U-Net with an ``act_dtype`` is refused where the step
+casts its batch (one device, ``shard_map``): the reference's ``_QuantConv``
+cannot convolve a bf16 input with float32 kernels, so it cannot run it
+either.
 Checkpoints, resume, warm start, the EMA and validation work on any family,
 through the module's own forward. ``fused_decoder`` trains the full U-Net
 through the fused k = 2-pair decoder (``models/unet_infer.py``), and
@@ -214,10 +223,14 @@ class Trainer:
         self.generator, self.critic = generator.to(self.device), discriminator.to(self.device)
         quantized = bool(getattr(self.generator, "weight_bits", 0)
                          or getattr(self.generator, "act_bits", 0))
-        if quantized and act_dtype is not None:
-            raise NotImplementedError("quantization-aware training of the full U-Net with an "
-                                      "activation storage format (act_dtype) is not ported "
-                                      "(ROADMAP A.5)")
+        if quantized and act_dtype is not None and strategy not in ("gspmd", "pp"):
+            # the step casts its batch to act_dtype, which the reference's
+            # _QuantConv cannot take (full_unet.py:52-71)
+            raise ValueError("the quantized full U-Net (quant_bits) cannot take an act_dtype "
+                             "batch: the reference's _QuantConv convolves it with float32 "
+                             "kernels, which lax.conv_general_dilated refuses (it requires "
+                             "arguments to have the same dtypes), so the reference cannot run "
+                             "it either")
         gen_forward = None
         if fused_decoder:
             # reference trainer.py:254-281
@@ -351,15 +364,18 @@ class Trainer:
                 axes["sp"] = seq_parallel
             self.mesh = make_mesh(axes)
             replicate_state((self.generator, self.critic))
+            # the reference builds its GSPMD step without act_dtype
+            # (trainer.py:323-330): the batch is not cast
+            gspmd_kw = {k: v for k, v in step_kw.items() if k != "act_dtype"}
             return make_gspmd_train_step(
                 self.generator, self.critic, self.opt_g, self.opt_d, self.dg_cfg,
                 self.loss_cfg, self.batch_size, self.mesh,
-                gen_tp_rule=unet_param_shardings if tensor_parallel > 1 else None, **step_kw)
+                gen_tp_rule=unet_param_shardings if tensor_parallel > 1 else None, **gspmd_kw)
         if strategy == "pp":
+            # act_dtype and matmul_precision are not passed on, as the
+            # reference's trainer passes neither (trainer.py:337-366)
             for flag, name in ((step_kw["gen_forward"] is not None, "fused_decoder"),
-                               (step_kw["batch_fn"] is not None, "image datasets"),
-                               (step_kw["act_dtype"] is not None, "act_dtype"),
-                               (step_kw["matmul_precision"] != "float32", "matmul_precision")):
+                               (step_kw["batch_fn"] is not None, "image datasets")):
                 if flag:
                     raise ValueError(f"strategy='pp' does not support {name}")
             if not isinstance(self.generator, FullUNetGenerator):

@@ -89,8 +89,8 @@ and the L1 term's mean where each process holds a piece of every frame
 The critic kernel computes the mini critic at ``float32`` or ``bfloat16``
 precision, the latter with the rounding of this step's autograd route (the
 reference's Pallas critic takes ``bfloat16`` too, and refuses the mixed
-modes), so its route is ``kernel`` only with no ``act_dtype`` and one of
-those two precisions.
+modes), so its route is ``kernel`` only with no ``act_dtype`` (the step's or the
+critic's own storage format) and one of those two precisions.
 """
 
 from __future__ import annotations
@@ -272,6 +272,7 @@ class TrainStep:
         self._reference = bool(value)
         kernel_data = not value and self.batch_fn is None and datagen_kernel.covers(self.dg_cfg)
         kernel_critic = (not value and self.act_dtype is None and self.critic_forward is None
+                         and getattr(self.critic, "act_dtype", None) is None
                          and (self.flat is None or self.flat.module_critic)
                          and self.matmul_precision in ("float32", "bfloat16")
                          and critic_kernel.covers(self.critic, self.dg_cfg.frame_length))

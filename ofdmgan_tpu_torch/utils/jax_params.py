@@ -11,7 +11,9 @@ keys).
 Conv kernels are flax ``[K, C_in, C_out]`` and torch ``[C_out, C_in, K]``;
 the dense kernel is flax ``[in, out]`` and torch ``[out, in]``. Both maps are
 transposes, so each direction is the inverse of the other (and of
-``ofdmgan_tpu/utils/torch_port.py:17-19``). The simpleGAN's parameters are
+``ofdmgan_tpu/utils/torch_port.py:17-19``). The QAT helpers of
+``quant/fakequant.py`` carry their running max as the flax tree's
+``batch_stats`` (``FakeQuantize``'s ``running_max`` buffer). The simpleGAN's parameters are
 a ``NamedTuple`` of eight arrays in both packages, in the same layout
 (``simplegan_from_numpy``, ``simplegan_to_numpy``).
 """
@@ -27,6 +29,7 @@ from torch import nn
 
 from ..models import MiniDiscriminator, MiniGenerator
 from ..models.full_unet import FullDiscriminator, FullUNetGenerator, full_unet_layer_names
+from ..quant.fakequant import FakeQuantize, QuantizedConv1d
 from ..simplegan.model import SimpleGANParams
 from .params_io import flatten_tree, unflatten_tree
 
@@ -49,6 +52,13 @@ CRITIC_KEYS = {
     "dense.weight": "params/dense/kernel",
     "dense.bias": "params/dense/bias",
 }
+
+
+# the QAT helpers: parameters under "params", FakeQuantize's running max
+# under "batch_stats" (the reference's flax collections)
+QUANTIZED_CONV_KEYS = {"weight": "params/kernel", "bias": "params/bias",
+                       "act_q.running_max": "batch_stats/act_q/running_max"}
+FAKE_QUANTIZE_KEYS = {"running_max": "batch_stats/running_max"}
 
 
 def _swap_layout(a: np.ndarray) -> np.ndarray:
@@ -83,7 +93,7 @@ def _depth(paths, pattern: str) -> int:
 def _keys_for(paths) -> Dict[str, str]:
     """The table whose flax paths are exactly ``paths``."""
     paths = set(paths)
-    tables = (GENERATOR_KEYS, CRITIC_KEYS,
+    tables = (GENERATOR_KEYS, CRITIC_KEYS, QUANTIZED_CONV_KEYS, FAKE_QUANTIZE_KEYS,
               full_generator_keys(_depth(paths, r"params/enc(\d+)_1/kernel")),
               full_critic_keys(_depth(paths, r"params/conv(\d+)/kernel")))
     for table in tables:
@@ -102,6 +112,10 @@ def keys_of(module: nn.Module) -> Dict[str, str]:
         return full_generator_keys(module.levels)
     if isinstance(module, FullDiscriminator):
         return full_critic_keys(module.levels)
+    if isinstance(module, QuantizedConv1d):
+        return QUANTIZED_CONV_KEYS
+    if isinstance(module, FakeQuantize):
+        return FAKE_QUANTIZE_KEYS
     raise ValueError(f"no JAX key table for {type(module).__name__}")
 
 

@@ -59,7 +59,11 @@ flat step's ``tf32_matmul`` on the card against the CPU: the critic's
 scores within 1e-6 and the penalty's parameter gradients within 1e-3 of
 each tensor's largest entry (both are sums of exact products of bf16
 parts, summed in another order; a cotangent summed apart may round to the
-other bf16 neighbour).
+other bf16 neighbour). QAT with a storage format: an e4m3fn ``qat``
+forward NaN everywhere on the card as on the CPU, ``rtl_faithful`` alone
+finite and within atol 1e-5. The packed step: one step against the module
+step on its batch's ``[B, L, 2]`` view, within 1e-3 of each tensor's
+largest update.
 """
 
 import copy
@@ -741,9 +745,9 @@ def _traced_kernels(fn):
     """``(fn(), counts)``: the port's kernels that ran on the device in one
     call of ``fn``, by name, from ``torch.profiler``'s trace (its first step,
     one small kernel, is dropped: the profiler misses a trace's first kernel).
-    The traced window can lose its leading records, so it opens with 32
-    launches of the Box-Muller kernel, a name no step runs, and one must be
-    left in the trace."""
+    The traced window can lose its leading records, so it opens with 512
+    launches of the Box-Muller kernel, a name no step runs, in groups of 64
+    each ended by a synchronize, and one must be left in the trace."""
     from torch.profiler import ProfilerActivity, profile, schedule
     probe = torch.zeros(1, device="cuda")
     bits = torch.zeros((1, 2), dtype=torch.int32, device="cuda")
@@ -753,9 +757,10 @@ def _traced_kernels(fn):
         probe.add_(1)
         torch.cuda.synchronize()
         prof.step()
-        for _ in range(32):
-            dk.box_muller(bits)
-        torch.cuda.synchronize()
+        for _ in range(8):
+            for _ in range(64):
+                dk.box_muller(bits)
+            torch.cuda.synchronize()
         out = fn()
         torch.cuda.synchronize()
         prof.step()
@@ -825,3 +830,63 @@ def test_tf32_matmul_on_the_card_matches_the_cpu(cuda):
     torch.testing.assert_close(score, score_ref, rtol=0, atol=1e-6 * float(score_ref.abs().max()))
     for g, r in zip(grads, grads_ref):
         torch.testing.assert_close(g, r, rtol=0, atol=1e-3 * float(r.abs().max()) + 1e-12)
+
+
+@pytest.mark.parametrize("mode", ["qat", "rtl"])
+def test_e4m3fn_qat_forward_nans_as_on_the_cpu(cuda, mode):
+    """An e4m3fn QAT forward is NaN everywhere on the card as on the CPU
+    (the Q8.8 clip's bounds lie outside the format); ``rtl_faithful``
+    alone is finite on both and agrees within atol 1e-5."""
+    torch.manual_seed(4)
+    kw = dict(qat=True) if mode == "qat" else dict(rtl_faithful=True)
+    g = MiniGenerator(act_dtype="float8_e4m3fn", input_residual=True, **kw)
+    x = (torch.randn(256, 16, 2, generator=torch.Generator().manual_seed(5)) * 0.5).to(
+        torch.float8_e4m3fn)
+    with torch.no_grad():
+        y_cpu = g(x)
+        y_card = copy.deepcopy(g).to(cuda)(x.to(cuda)).cpu()
+    assert torch.equal(torch.isnan(y_card), torch.isnan(y_cpu))
+    assert bool(torch.isnan(y_cpu).all()) == (mode == "qat")
+    if mode == "rtl":
+        torch.testing.assert_close(y_card, y_cpu, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("p", [4, 2])
+def test_packed_step_matches_the_module_step_on_the_card(cuda, p):
+    """From a state three packed steps warmed up (a fresh Adam turns a
+    gradient that is zero up to rounding into a full step of either sign),
+    one packed step (the datagen kernel's batch, packed with no copy)
+    against the module step on that batch's [B, L, 2] view and the same
+    uniforms: each tensor's update within 1e-3 of its largest entry, as the
+    kernel and plain steps (the critic kernel and the packed critic's
+    autograd sum in other orders)."""
+    from ofdmgan_tpu_torch.ops import packed_step as ps
+    torch.manual_seed(6)
+    g, d = MiniGenerator().to(cuda), MiniDiscriminator().to(cuda)
+    adam = lambda m: make_adam(m.parameters(), 2e-4, (0.0, 0.9))  # noqa: E731
+    cfg = sdg.DatagenConfig()
+    opt_g, opt_d = adam(g), adam(d)
+    step = ps.PackedTrainStep(g, d, opt_g, opt_d, cfg, LossConfig(), 4096, p=p, scan_steps=3,
+                              matmul_precision="float32")
+    assert step.datagen_route == "kernel"
+    rng = torch.Generator(device=cuda).manual_seed(7)
+    before = dk.launches
+    step(rng)
+    assert dk.launches == before + 3
+    g2, d2 = copy.deepcopy(g), copy.deepcopy(d)
+    module = TrainStep(g2, d2, adam(g2), adam(d2), cfg, LossConfig(), 4096)
+    for new, old in ((module.opt_g, opt_g), (module.opt_d, opt_d)):
+        new.load_state_dict(*copy.deepcopy(old.state_dict()))
+    batch, alphas = step.draw(rng)
+    start = [q.detach().clone() for q in (*g.parameters(), *d.parameters())]
+    step.run(batch, alphas)
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        module.run({k: batch[k].view(4096, 16, 2) for k in ("noisy", "clean")}, alphas)
+    finally:
+        torch.backends.cudnn.deterministic = saved
+    for q0, a, b in zip(start, (*g.parameters(), *d.parameters()),
+                        (*g2.parameters(), *d2.parameters())):
+        upd = (b - q0).detach()
+        assert float(((a - q0) - upd).abs().max()) <= 1e-3 * float(upd.abs().max()) + 1e-9

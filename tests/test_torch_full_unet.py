@@ -149,12 +149,13 @@ def test_a_two_level_critic_keeps_its_own_keys():
 @pytest.mark.parametrize("kw", [dict(weight_bits=8), dict(act_bits=16)])
 def test_quantized_modes_raise(kw):
     """The quantized forward takes no fused decoder (reference
-    trainer.py:265-268) and no activation storage format (not ported)."""
+    trainer.py:265-268) and, on a step that casts its batch, no activation
+    storage format (the reference's ``_QuantConv`` refuses a bf16 input)."""
     g = FullUNetGenerator(frame_length=64, levels=3, base_channels=4, **kw)
     d = FullDiscriminator(frame_length=64, levels=3, base_channels=4)
     with pytest.raises(ValueError, match="fused_decoder"):
         Trainer(device="cpu", generator=g, discriminator=d, fused_decoder=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
+    with pytest.raises(ValueError, match="the reference cannot run it either"):
         Trainer(device="cpu", generator=g, discriminator=d, act_dtype="bfloat16")
 
 

@@ -134,7 +134,14 @@ def test_bridge_rejects_an_unknown_tree():
 
 @pytest.mark.parametrize("mode", ["rtl_faithful", "qat"])
 def test_unported_generator_modes_raise(mode):
-    """The quantized modes with an activation storage format are not ported."""
-    MiniGenerator(**{mode: True})
-    with pytest.raises(NotImplementedError, match="ROADMAP A.5"):
-        MiniGenerator(**{mode: True}, act_dtype="bfloat16")
+    """The quantized modes with an activation storage format, which raised
+    before they were ported, now build and compute the reference's forward
+    (bf16 storage here, atol 1e-5 as above; every format and the step:
+    ``tests/test_torch_qat_act_dtype.py``)."""
+    jg = JGen(**{mode: True}, act_dtype="bfloat16")
+    x = _frames(5)
+    tg = _ported(MiniGenerator(**{mode: True}, act_dtype="bfloat16"), jg.init(KEY, x))
+    with torch.no_grad():
+        got = tg(torch.from_numpy(x)).numpy()
+    ref = np.asarray(jg.apply(jg.init(KEY, x), x)).astype(np.float32)
+    np.testing.assert_allclose(got, ref, atol=1e-5, rtol=1e-5)

@@ -169,14 +169,14 @@ def _points_on_jax_activations(kw, frames, seed, fault=None):
     jpoints = [np.array(a) for a in state["intermediates"]["_maybe_quant_act"]]
     points, quant = [], tf._quant_act
 
-    def teacher_forced(h):
+    def teacher_forced(h, *where):
         i = len(points)
         if (fault, i) in (("input", 0), ("skip", 11)):
             q = h
         elif fault == "per_channel":
             q = fake_quantize_auto(h, tf.act_bits, per_channel=True, channel_axis=1)
         else:
-            q = quant(h)
+            q = quant(h, *where)
         points.append(q.transpose(1, 2).numpy())
         return torch.from_numpy(jpoints[i]).transpose(1, 2)
 
@@ -279,5 +279,5 @@ def test_build_models_makes_the_quantized_generators():
     assert t.generator is g and (t.step.datagen_route, t.step.critic_route) == ("kernel", "kernel")
     fg, fd = build_models(Config(frame_length=64), "full", 0, quant_bits=(8, 16))
     assert (fg.weight_bits, fg.act_bits) == (8, 16)
-    with pytest.raises(NotImplementedError, match="act_dtype"):
+    with pytest.raises(ValueError, match="act_dtype"):
         Trainer(device="cpu", generator=fg, discriminator=fd, act_dtype="bfloat16")

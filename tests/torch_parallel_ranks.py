@@ -6,11 +6,15 @@ tests hand them the JAX side's weights, optimizer states and draws as numpy
 arrays. Nothing here imports JAX: the spawned ranks import this module.
 """
 
+import dataclasses
+import functools
 from unittest import mock
 
 import numpy as np
 import torch
 
+from ofdmgan_tpu_torch.config import (Config, FullModelSection, GeneratorSection,
+                                      TrainingSection)
 from ofdmgan_tpu_torch.models import MiniDiscriminator, MiniGenerator
 from ofdmgan_tpu_torch.models.full_unet import (FullDiscriminator, FullUNetGenerator,
                                                 unet_param_shardings)
@@ -23,11 +27,13 @@ from ofdmgan_tpu_torch.parallel.gspmd import halo_adjoint, halo_exchange, sp_con
 from ofdmgan_tpu_torch.parallel.mesh import MeshShard, axis_group, axis_index
 from ofdmgan_tpu_torch.signal.datagen import DatagenConfig
 from ofdmgan_tpu_torch.training.schedules import make_adam
+from ofdmgan_tpu_torch.training.trainer import Trainer, build_models
 from ofdmgan_tpu_torch.training.wgan_gp import LossConfig, critic_loss_fn
 from ofdmgan_tpu_torch.utils.jax_params import from_jax_params, to_jax_params
 from ofdmgan_tpu_torch.utils.params_io import flatten_tree
 
 SMALL = dict(frame_length=64, levels=3, base_channels=8)
+SMALL_FULL = dict(levels=3, base_channels=8)
 
 
 def _t(tree):
@@ -43,10 +49,11 @@ def _module(cls, tree, **kw):
     return m
 
 
-def _adam(module, lr, state=None):
-    """Adam over ``module`` (no schedule), with the JAX side's moments and
-    count where ``state = (mu, nu, count)`` is given."""
-    opt = make_adam(module.parameters(), lr, (0.0, 0.9))
+def _adam(module, lr, state=None, into=None):
+    """Adam over ``module`` (no schedule), or the optimizer ``into``, with
+    the JAX side's moments and count where ``state = (mu, nu, count)`` is
+    given."""
+    opt = make_adam(module.parameters(), lr, (0.0, 0.9)) if into is None else into
     if state is not None:
         mu, nu, count = state
         mu, nu = from_jax_params(mu), from_jax_params(nu)
@@ -192,7 +199,7 @@ def _sp_critic_grads(mesh, leg) -> dict:
     shard = MeshShard(mesh, (d,))
 
     def critic(a, b):
-        return d(a, b, conv_fn=lambda c, nm, h: sp_conv(group, c, nm, h),
+        return d(a, b, conv_fn=functools.partial(sp_conv, group),
                  pool=lambda t: ReduceFromGroup.apply(t, group))
 
     loss, aux = critic_loss_fn(critic, lambda x: fake, batch, torch.from_numpy(leg["alpha"]),
@@ -219,3 +226,120 @@ def _halo_adjoint_identity() -> float:
         distributed.all_reduce(diff, group)
         worst = max(worst, abs(float(diff)) / world)
     return worst
+
+
+# ------------------------------------------------------- trainer legs
+def _trainer(leg: dict, **override):
+    """A CPU trainer of ``leg``'s family under ``leg``'s mesh, its models
+    built as the CLI builds them (``build_models``) with ``leg``'s warmed
+    JAX parameters and Adam state; ``override`` replaces trainer settings."""
+    kw = {**leg["trainer"], **override}
+    L, mesh, gen = leg["frame_length"], leg["mesh"], dict(leg["gen"])
+    residual = GeneratorSection(input_residual=gen.pop("input_residual", False))
+    cfg = Config(frame_length=L, full=FullModelSection(**SMALL_FULL), generator=residual,
+                 training=dataclasses.replace(TrainingSection(), batch_size=leg["batch"],
+                                              n_critic=leg["n_critic"]),
+                 export_after_training=False)
+    g, d = build_models(cfg, leg["family"], 0, kw["act_dtype"], **gen)
+    g.load_state_dict(from_jax_params(leg["pg"]))
+    d.load_state_dict(from_jax_params(leg["pd"]))
+    t = Trainer(cfg, samples_per_epoch=leg["batch"], val_samples=leg["batch"], device="cpu",
+                generator=g, discriminator=d, strategy="gspmd",
+                data_parallel=mesh.get("dp", 1), tensor_parallel=mesh.get("tp", 1),
+                seq_parallel=mesh.get("sp", 1), **kw)
+    for module, opt, state in ((t.generator, t.opt_g, leg["opt_g"]),
+                               (t.critic, t.opt_d, leg["opt_d"])):
+        _adam(module, leg["lr"], state, into=opt)
+    t.step.set_optimizers(t.opt_g, t.opt_d)   # re-sharded under tp
+    return t
+
+
+def _trainer_step(leg: dict, **override) -> dict:
+    """One global step of ``leg``'s trainer on its JAX draws, the full
+    state gathered back; with the collectives' bytes and the routes."""
+    t = _trainer(leg, **override)
+    batch, alphas = leg["draws"]
+    distributed.reset_traffic()
+    m = t.step.run(_t(batch), _t(alphas))
+    traffic = dict(distributed.traffic)
+    t._gather_state()
+    return {**_result(t.generator, t.critic, t.opt_g, t.opt_d, m),
+            "routes": (t.step.datagen_route, t.step.critic_route),
+            "step_act_dtype": t.step.act_dtype, "traffic": traffic}
+
+
+def _local_max(self, m, name):
+    return m
+
+
+# each: (the leg it breaks, the attribute it replaces, its stand-in)
+TRAINER_MUTATIONS = {
+    "quant_local_max": ("full_dp_quant", (gspmd.GSPMDTrainStep, "_amax"), _local_max),
+}
+
+
+def _pp_updates(leg: dict) -> dict:
+    """The pipelined supervised update from one state and seed, with and
+    without ``act_dtype`` and ``matmul_precision``."""
+    out = {}
+    for name, kw in (("plain", {}), ("flags", dict(act_dtype="bfloat16",
+                                                   matmul_precision="bfloat16"))):
+        cfg = Config(frame_length=leg["frame_length"], full=FullModelSection(**SMALL_FULL),
+                     training=dataclasses.replace(TrainingSection(), batch_size=leg["batch"],
+                                                  n_critic=0, adversarial_weight=0.0),
+                     export_after_training=False)
+        g, d = build_models(cfg, "full", 0)
+        g.load_state_dict(from_jax_params(leg["pg"]))
+        t = Trainer(cfg, samples_per_epoch=leg["batch"], val_samples=leg["batch"],
+                    device="cpu", generator=g, discriminator=d, strategy="pp",
+                    pipeline_parallel=2, microbatches=4, **kw)
+        m = t.step(torch.Generator().manual_seed(5))
+        out[name] = {"params_g": flatten_tree(to_jax_params(t.generator)),
+                     "rec_loss": float(m["rec_loss"])}
+    return out
+
+
+def _recorded_scales(leg: dict, amax) -> list:
+    """``(name, maximum)`` of every quantization point of the GSPMD step's
+    generator forward on this rank's shard of ``leg``'s batch, the maxima
+    from ``amax(step, local_max, name)``."""
+    seen = []
+
+    def record(self, m, name):
+        out = amax(self, m, name)
+        seen.append((name, out.detach().reshape(-1).numpy().copy()))
+        return out
+
+    with mock.patch.object(gspmd.GSPMDTrainStep, "_amax", record):
+        t = _trainer(leg)
+    batch, _ = leg["draws"]
+    with torch.no_grad():
+        t.step.forward(t.step.local(_t(batch))["noisy"])
+    return seen
+
+
+def trainer_legs(legs: dict) -> dict:
+    """Each GSPMD leg of ``legs`` through the trainer (one global step from
+    its warmed state on this rank's shard), each with its trainer settings
+    and, where a leg names ``also``, again with those settings replaced;
+    then the legs ``TRAINER_MUTATIONS`` break; ``pp`` legs give the
+    pipeline's update with and without the flags it ignores; a leg with
+    ``scales`` also gives its quantized generator's maxima on this rank's
+    shard (``_recorded_scales``), those of the mutations too."""
+    out = {}
+    for name, leg in legs.items():
+        if leg.get("pp"):
+            out[name] = _pp_updates(leg)
+            continue
+        out[name] = _trainer_step(leg)
+        for alt, override in leg.get("also", {}).items():
+            out[alt] = _trainer_step(leg, **override)
+        if leg.get("scales"):
+            out[f"{name}_scales"] = _recorded_scales(leg, gspmd.GSPMDTrainStep._amax)
+    for name, (leg_name, (owner, attr), stand_in) in TRAINER_MUTATIONS.items():
+        if leg_name in legs:
+            with mock.patch.object(owner, attr, stand_in):
+                out[name] = _trainer_step(legs[leg_name])
+            if legs[leg_name].get("scales"):
+                out[f"{name}_scales"] = _recorded_scales(legs[leg_name], stand_in)
+    return out
