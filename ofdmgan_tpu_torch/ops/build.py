@@ -21,6 +21,8 @@ from typing import Dict, Iterable
 
 import torch
 
+from ..utils import spans
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ofdmgan_tpu_torch"
 SOURCES = ("datagen", "critic_grad")
@@ -83,6 +85,8 @@ def sm_count(device) -> int:
 
 @functools.lru_cache(maxsize=None)
 def load(name: str) -> ctypes.CDLL:
-    """The shared library of ``csrc/<name>.cu``, built first if needed."""
-    build([name])
-    return ctypes.CDLL(str(library_path(name)))
+    """The shared library of ``csrc/<name>.cu``, built first if needed; an
+    ``ops.build`` span, kept with spans off too, times the build and the load."""
+    with spans.setup_span("ops.build"):
+        build([name])
+        return ctypes.CDLL(str(library_path(name)))

@@ -18,9 +18,13 @@ optimizers must hold their schedules on the device
 launches their wrappers run; a capture records launches without running
 them and a replay calls no wrapper, so neither moves a counter: the
 launches a replay runs show in a profiler's trace of it. A capture that
-fails raises; a graph whose
-tensors the trainer replaced (a resume, a warm start) is captured again
-after ``reset()``.
+fails raises; a graph whose tensors the trainer replaced (a resume, a warm
+start) is captured again after ``reset()``.
+
+Spans (``utils/spans.py``) time an eager chunk's call and a replay on the
+host (``chunk``) and every capture (``chunk.capture``, kept with spans off
+too); a capture taken with spans on holds the step's spans' device events,
+which each replay records again.
 
 The reference unrolls its outer scan by ``outer_unroll`` ("pure codegen,
 identical numerics", ``wgan_gp.py:207-214``) and its critic scan by
@@ -36,6 +40,8 @@ from __future__ import annotations
 from typing import Callable, Dict
 
 import torch
+
+from ..utils import spans
 
 MAX_SCAN_STEPS = 32
 
@@ -57,8 +63,9 @@ class EagerChunk:
         self.step, self.rng, self.k = step, rng, k
 
     def __call__(self) -> Dict[str, torch.Tensor]:
-        for _ in range(self.k):
-            metrics = self.step(self.rng)
+        with spans.host_span("chunk"):
+            for _ in range(self.k):
+                metrics = self.step(self.rng)
         return metrics
 
     def reset(self) -> None:
@@ -100,14 +107,15 @@ class GraphedChunk:
         benchmark = torch.backends.cudnn.benchmark
         torch.backends.cudnn.benchmark = False
         try:
-            with torch.cuda.graph(graph):
+            with spans.setup_span("chunk.capture"), torch.cuda.graph(graph):
                 metrics = self.eager()
         finally:
             torch.backends.cudnn.benchmark = benchmark
         self.graph, self.metrics = graph, metrics
 
     def replay(self) -> Dict[str, torch.Tensor]:
-        self.graph.replay()
+        with spans.host_span("chunk"):
+            self.graph.replay()
         return self.metrics
 
     def __call__(self) -> Dict[str, torch.Tensor]:

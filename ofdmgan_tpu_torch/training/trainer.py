@@ -121,6 +121,7 @@ from ..models.unet_infer import make_unet_infer_apply
 from ..quant.export import export_any_generator
 from ..utils.jax_params import from_jax_params, to_jax_params
 from ..utils.logging import MetricsLogger
+from ..utils import spans
 from ..utils.params_io import load_params_tree, save_params_tree
 from ..parallel import distributed
 from ..parallel.mesh import ShardedTrainStep
@@ -482,9 +483,13 @@ class Trainer:
         return {k: v / self.val_batches for k, v in totals.items()}
 
     def profile_steps(self, n_chunks: int = 2, trace_dir: Optional[str] = None) -> str:
-        """Trace ``n_chunks`` chunks, run step by step, with ``torch.profiler``
-        into a Chrome trace ``trace.json`` under ``trace_dir`` (default: the
-        run's log directory's ``profile/``); returns the directory."""
+        """Trace ``n_chunks`` chunks, run step by step with spans on
+        (``utils/spans.py``), with ``torch.profiler`` into a Chrome trace
+        ``trace.json`` under ``trace_dir`` (default: the run's log
+        directory's ``profile/``), in which the spans enclose their kernels;
+        beside it ``spans.json``: the outer steps traced and each span
+        name's self time an outer step, ``host_ms_per_step`` and, on the
+        card, ``device_ms_per_step``. Returns the directory."""
         from torch.profiler import ProfilerActivity, profile
 
         trace_dir = Path(trace_dir or (self.logger.dir if self.logger
@@ -494,12 +499,23 @@ class Trainer:
         if self.device.type == "cuda":
             activities.append(ProfilerActivity.CUDA)
         chunk = EagerChunk(self.step, self._step_rng, self.scan_steps)
-        with profile(activities=activities) as prof:
-            for _ in range(n_chunks):
-                chunk()
-            if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+        first = len(spans.records())
+        spans.enable()
+        try:
+            with profile(activities=activities) as prof:
+                for _ in range(n_chunks):
+                    chunk()
+                if self.device.type == "cuda":
+                    torch.cuda.synchronize(self.device)
+        finally:
+            spans.disable()
         prof.export_chrome_trace(str(trace_dir / "trace.json"))
+        recs = spans.records()[first:]
+        out = {"steps": n_chunks * self.scan_steps,
+               "host_ms_per_step": spans.per_step_ms(recs, device=False)}
+        if self.device.type == "cuda":
+            out["device_ms_per_step"] = spans.per_step_ms(recs)
+        (trace_dir / "spans.json").write_text(json.dumps(out, indent=2))
         return str(trace_dir)
 
     # ---------------------------------------------------------- checkpoints

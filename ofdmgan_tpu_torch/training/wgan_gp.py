@@ -93,6 +93,12 @@ each update's gradients are concatenated into it before the optimizer
 steps. Adam is elementwise, so the step computes the per-parameter step's
 numbers.
 
+Spans (``utils/spans.py``, off by default) mark the step's phases: ``step``
+around a call (or a ``run`` from given draws), ``step.datagen`` around the
+draws, ``step.critic`` around each critic update, ``step.generator``
+around the generator's loss, gradient and update, and ``optim`` around
+each Adam update.
+
 Two settings serve the parallel strategies (``parallel/``):
 ``critic_forward(critic, candidate, condition)`` replaces the critic
 module's forward as ``gen_forward`` does the generator's, and ``shard``
@@ -143,6 +149,7 @@ from ..models.flat import FlatStep
 from ..models.generator import FP8_DTYPES, as_dtype, storage_dtype
 from ..ops import bf16_dots, critic_kernel, datagen_kernel
 from ..signal.datagen import DatagenConfig, synthetic_batch
+from ..utils import spans
 from .schedules import AdamStepLR
 
 MATMUL_PRECISIONS = ("float32", "tensorfloat32", "bfloat16", "bf16_tf32gp", "bf16_f32gp")
@@ -249,12 +256,13 @@ def _apply_grads(module: nn.Module, opt: AdamStepLR, grads, flat_params: bool = 
     """One update of ``module`` with ``grads`` (one a parameter, in
     ``parameters()`` order); with ``flat_params`` the optimizer holds the
     module's one flat tensor, whose gradient is their concatenation."""
-    if flat_params:
-        opt.opt.param_groups[0]["params"][0].grad = torch.cat([g.reshape(-1) for g in grads])
-    else:
-        for p, g in zip(module.parameters(), grads):
-            p.grad = g
-    opt.step()
+    with spans.span("optim"):
+        if flat_params:
+            opt.opt.param_groups[0]["params"][0].grad = torch.cat([g.reshape(-1) for g in grads])
+        else:
+            for p, g in zip(module.parameters(), grads):
+                p.grad = g
+        opt.step()
 
 
 def _recomputed(fn: Callable) -> Callable:
@@ -377,12 +385,13 @@ class TrainStep:
         uniforms (float32, with bf16's values on the kernel route under bf16
         storage) and, with ``fresh_critic_batches``, the critic batches (else
         ``None``), as ``run`` takes them."""
-        batch0 = self.draw_batch(rng)
-        critic_batches, alphas = [], []
-        for _ in range(self.loss_cfg.n_critic):
-            if self.loss_cfg.fresh_critic_batches:
-                critic_batches.append(self.draw_batch(rng))
-            alphas.append(self._draw_alpha(rng))
+        with spans.span("step.datagen"):
+            batch0 = self.draw_batch(rng)
+            critic_batches, alphas = [], []
+            for _ in range(self.loss_cfg.n_critic):
+                if self.loss_cfg.fresh_critic_batches:
+                    critic_batches.append(self.draw_batch(rng))
+                alphas.append(self._draw_alpha(rng))
         return batch0, alphas, critic_batches or None
 
     def _draw_alpha(self, rng: torch.Generator) -> torch.Tensor:
@@ -399,7 +408,8 @@ class TrainStep:
 
     def __call__(self, rng: torch.Generator) -> Dict[str, torch.Tensor]:
         """Draw the step's batch(es) and penalty uniforms from ``rng``, then run it."""
-        return self.run(*self.draw(rng))
+        with spans.step():
+            return self.run(*self.draw(rng))
 
     def forward(self, noisy: torch.Tensor) -> torch.Tensor:
         """The generator's training forward (with a flat premap, the dense
@@ -437,33 +447,35 @@ class TrainStep:
         return self.critic_applies()[0]
 
     def critic_update(self, batch, alpha: torch.Tensor) -> Dict[str, torch.Tensor]:
-        if self.critic_route == "kernel":
-            # the stored batch and the generator's float32 output, uncast
-            # (reference wgan_gp.py:340-349); critic_loss_fn's cast of fake
-            # to the batch's format is the autograd route's
-            noisy, clean = batch["noisy"], batch["clean"]
-            with torch.no_grad():
-                fake = self.forward(noisy)
-            if self.flat is not None:   # the kernel reads [B, L, 2] frames
-                noisy, clean, fake = (t.reshape(t.shape[0], -1, 2) for t in (noisy, clean, fake))
-            grads, aux = critic_kernel.critic_grad(
-                self.critic, clean, fake, noisy, alpha, self.loss_cfg.gp_weight,
-                self.critic.leaky_slope, bf16=self.matmul_precision == "bfloat16")
-            grads = [grads[name] for name, _ in self.critic.named_parameters()]
-        else:
-            critic, critic_gp = self.critic_applies()
-            # a penalty chain of its own takes precedence over the mixed
-            # modes' context (reference wgan_gp.py:92-98)
-            gp_context = (contextlib.nullcontext if critic_gp is not None
-                          else functools.partial(gp_precision, self.matmul_precision))
-            loss, aux = critic_loss_fn(critic, self.forward, batch, alpha, self.loss_cfg,
-                                       gp_context, self.shard.frame_sum if self.shard else None,
-                                       critic_gp, self.fuse_realfake)
-            grads = torch.autograd.grad(loss, list(self.critic.parameters()))
-        if self.shard is not None:
-            grads, aux = self.shard.reduce(self.critic, grads, aux)
-        _apply_grads(self.critic, self.opt_d, grads, self.flat_params)
-        return aux
+        with spans.span("step.critic"):
+            if self.critic_route == "kernel":
+                # the stored batch and the generator's float32 output, uncast
+                # (reference wgan_gp.py:340-349); critic_loss_fn's cast of fake
+                # to the batch's format is the autograd route's
+                noisy, clean = batch["noisy"], batch["clean"]
+                with torch.no_grad():
+                    fake = self.forward(noisy)
+                if self.flat is not None:   # the kernel reads [B, L, 2] frames
+                    noisy, clean, fake = (t.reshape(t.shape[0], -1, 2)
+                                          for t in (noisy, clean, fake))
+                grads, aux = critic_kernel.critic_grad(
+                    self.critic, clean, fake, noisy, alpha, self.loss_cfg.gp_weight,
+                    self.critic.leaky_slope, bf16=self.matmul_precision == "bfloat16")
+                grads = [grads[name] for name, _ in self.critic.named_parameters()]
+            else:
+                critic, critic_gp = self.critic_applies()
+                # a penalty chain of its own takes precedence over the mixed
+                # modes' context (reference wgan_gp.py:92-98)
+                gp_context = (contextlib.nullcontext if critic_gp is not None
+                              else functools.partial(gp_precision, self.matmul_precision))
+                loss, aux = critic_loss_fn(critic, self.forward, batch, alpha, self.loss_cfg,
+                                           gp_context, self.shard.frame_sum if self.shard else None,
+                                           critic_gp, self.fuse_realfake)
+                grads = torch.autograd.grad(loss, list(self.critic.parameters()))
+            if self.shard is not None:
+                grads, aux = self.shard.reduce(self.critic, grads, aux)
+            _apply_grads(self.critic, self.opt_d, grads, self.flat_params)
+            return aux
 
     def run(self, batch0, alphas: List[torch.Tensor],
             critic_batches: Optional[List[dict]] = None) -> Dict[str, torch.Tensor]:
@@ -480,16 +492,17 @@ class TrainStep:
                       "clean": batch0["clean"].to(self.act_dtype)}
         zero = torch.zeros((), device=device)
         d_aux = {k: zero for k in METRIC_KEYS[:5]}
-        with matmul_precision(self.matmul_precision):
+        with spans.step(), matmul_precision(self.matmul_precision):
             for i, alpha in enumerate(alphas):
                 d_aux = self.critic_update(critic_batches[i] if critic_batches else batch0, alpha)
-            g_loss, g_aux = generator_loss_fn(self.forward, self.critic_apply(), batch0,
-                                              self.loss_cfg,
-                                              self.shard.mean if self.shard else torch.mean)
-            g_grads = torch.autograd.grad(g_loss, list(self.generator.parameters()))
-            if self.shard is not None:
-                g_grads, g_aux = self.shard.reduce(self.generator, g_grads, g_aux)
-            _apply_grads(self.generator, self.opt_g, g_grads, self.flat_params)
+            with spans.span("step.generator"):
+                g_loss, g_aux = generator_loss_fn(self.forward, self.critic_apply(), batch0,
+                                                  self.loss_cfg,
+                                                  self.shard.mean if self.shard else torch.mean)
+                g_grads = torch.autograd.grad(g_loss, list(self.generator.parameters()))
+                if self.shard is not None:
+                    g_grads, g_aux = self.shard.reduce(self.generator, g_grads, g_aux)
+                _apply_grads(self.generator, self.opt_g, g_grads, self.flat_params)
         return {**d_aux, **g_aux}
 
 
