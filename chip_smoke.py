@@ -2,14 +2,17 @@
 """Smoke run of the PyTorch/CUDA port on one GPU: ``python3 chip_smoke.py``.
 
 Builds the port's CUDA kernels from ``ofdmgan_tpu_torch/csrc``, holds each
-against its plain PyTorch version on the card, trains the mini CWGAN-GP for
-two short epochs through both kernels with ``Trainer``, and checks that the
-kernel path and the plain path take the same step. A mini trainer on the
+against its plain PyTorch version on the card (the generator-gradient
+kernel, which replaces no TPU kernel, also against autograd's generator
+update: phase ``generator``), trains the mini CWGAN-GP for two short epochs
+through the three kernels with ``Trainer``, and checks that the kernel path
+and the plain path take the same step. A mini trainer on the
 card runs its second epoch as one CUDA graph replay (``training/
 chunks.py``); a replay calls no wrapper, so wherever a trainer runs, its
 launches are the wrappers' counts plus the kernels each replay ran,
 counted by name from that replay's profiler trace (``counted_launches``),
-and every such run is held to its exact count. Phase ``train_scope``
+and every such run is held to its exact count and to its route of each
+kernel. Phase ``train_scope``
 then trains a configuration outside the datagen kernel's scope (multipath
 channel, every default impairment, an EMA, a checkpoint each epoch) and
 checks that it takes the FFT datagen and the critic kernel, that a trainer
@@ -147,13 +150,16 @@ bf16 matmul precision (a value summed in another order may round to the
 other bf16 neighbour), and for its storage form (bf16 clean and noisy) at
 both precisions against its plain version on the same tensors; the
 ``tensorfloat32`` route's output equal to the float32 call's (the kernel
-reads no TF32 flag). One
+reads no TF32 flag). The generator-gradient kernel against its plain
+version and against autograd's generator update at the same tolerances
+(metrics rtol 1e-4, atol 1e-5), and two calls bit for bit equal. One
 outer step through the kernels and one through the plain path (FFT datagen,
-autograd critic) from the same state and draws: each parameter tensor's
+autograd critic and generator update) from the same state and draws: each parameter tensor's
 update agrees within 1e-3 of that update's largest entry. The kernel table
 gives each kernel's time per call (``ms``, with its host work), device time
 per call (``device_us_per_launch``: the profiler's time of the kernel's own
-launches), plain time and error at the main path's batch (64); the phase
+launches), plain time (and the generator kernel's autograd time) and error
+at the main path's batch (64); the phase
 lines give them at every length and batch timed, and at the large batches
 also the time per launch of back-to-back launches of the kernel alone (CUDA
 events; at B = 64 that would time the host's call rate, not the device).
@@ -382,6 +388,7 @@ DATAGEN_LENGTHS = (8, 16, 32, 64, 128, 1024)   # held against the plain version
 DATAGEN_TIMED = ((16, MAIN_B), (16, DATAGEN_BIG_B), (1024, 4096))   # (L, B)
 CRITIC_BATCHES = (1, MAIN_B, 1000, 65536)      # 1000: ragged against the 4-warp blocks
 CRITIC_TIMED = (MAIN_B, 65536)
+GENERATOR_BATCHES = (MAIN_B, 65536)   # the generator kernel: held and timed
 CRITIC_PARAMS = 521         # the mini critic's parameters, one gradient each
 STEP_RTOL = 1e-3            # kernel vs plain outer step, of each tensor's largest update
 RESUME_RTOL = 1e-6          # resumed vs uninterrupted step, of each tensor's largest update
@@ -672,6 +679,19 @@ def critic_bound_ms(b: int, storage_bytes: int = 4) -> tuple[float, str]:
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+def generator_bound_ms(b: int) -> tuple[float, str]:
+    """The generator-gradient kernel's least time for one call at batch
+    ``b`` and what bounds it: the bound of the benchmark's
+    ``generator_grad_roofline`` (``perfbench/metrics/``), at the same peaks."""
+    import importlib.util
+    from pathlib import Path
+    path = Path(__file__).resolve().parent / "perfbench" / "metrics" / "generator_grad_roofline.py"
+    spec = importlib.util.spec_from_file_location("generator_grad_roofline", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.bound_ms(b)
+
+
 def updates_agree(start: dict, a: dict, b: dict, rtol, what: str) -> tuple:
     """(largest difference, largest difference over the tensor's largest
     update) of two updates from ``start``, per parameter tensor; raises where
@@ -735,7 +755,10 @@ TRACE_SENTINEL_GROUP = 64   # ... in groups, each ended by a synchronize
 # the port's kernels by the names the profiler gives them (csrc/*.cu); the
 # critic wrapper launches the per-block kernel and its sum together
 TRACED_KERNELS = {"datagen": "datagen_kernel", "critic_grad": "critic_grad_kernel",
-                  "critic_grad_sum": "critic_grad_sum_kernel"}
+                  "critic_grad_sum": "critic_grad_sum_kernel",
+                  "generator_grad": "generator_grad_kernel",
+                  "generator_grad_sum": "generator_grad_sum_kernel"}
+KERNELS = ("datagen", "critic_grad", "generator_grad")   # launch counts, by wrapper
 
 
 class TraceLost(RuntimeError):
@@ -803,23 +826,22 @@ def replay_launches(fn) -> tuple:
         raise TraceLost(f"the trace lost all {TRACE_SENTINELS} sentinel launches: "
                         "its count of the replay's launches may be short")
     counts = {k: count(name) for k, name in TRACED_KERNELS.items()}
-    if counts["critic_grad_sum"] != counts["critic_grad"]:
-        raise AssertionError(f"a replay ran the critic's kernels unpaired: {counts}")
-    return out, {k: counts[k] for k in ("datagen", "critic_grad")}
+    for k in ("critic_grad", "generator_grad"):
+        if counts[f"{k}_sum"] != counts[k]:
+            raise AssertionError(f"a replay ran the {k} kernels unpaired: {counts}")
+    return out, {k: counts[k] for k in KERNELS}
 
 
 @contextlib.contextmanager
 def counted_launches(trainer=None):
-    """The launches of a run of the main path: sets both wrappers' counts
+    """The launches of a run of the main path: sets the wrappers' counts
     to 0 and, while ``trainer`` (if given) replays graphed chunks, counts
     each replay's launches from its trace (``replay_launches``). Yields a
-    dict that holds, after the block, ``datagen`` and ``critic_grad``: the
-    launches the wrappers ran plus those the replays ran; ``replays`` and
-    ``replayed`` (the replays' share)."""
-    from ofdmgan_tpu_torch.ops import critic_kernel as ck, datagen_kernel as dk
-    dk.launches = 0
-    ck.launches = 0
-    out = {"replays": 0, "replayed": {"datagen": 0, "critic_grad": 0}}
+    dict that holds, after the block, each of KERNELS: the launches the
+    wrappers ran plus those the replays ran; ``replays`` and ``replayed``
+    (the replays' share)."""
+    _counts_reset()
+    out = {"replays": 0, "replayed": dict.fromkeys(KERNELS, 0)}
     chunk = trainer.chunk if trainer is not None and trainer.graphed else None
     if chunk is not None:
         replay = chunk.replay
@@ -837,8 +859,7 @@ def counted_launches(trainer=None):
     finally:
         if chunk is not None:
             del chunk.replay
-    out.update(datagen=dk.launches + out["replayed"]["datagen"],
-               critic_grad=ck.launches + out["replayed"]["critic_grad"])
+    out.update({k: v + out["replayed"][k] for k, v in _counts().items()})
 
 
 def trained(trainer, name: str, want_routes: dict, want_launches: dict,
@@ -847,7 +868,7 @@ def trained(trainer, name: str, want_routes: dict, want_launches: dict,
     (``counted_launches``); check its routes, its launch counts and that
     its metrics are finite under the log ``keys``. Returns the run's
     fields."""
-    routes = {"datagen": trainer.step.datagen_route, "critic": trainer.step.critic_route}
+    routes = _routes(trainer.step)
     if routes != want_routes:
         raise AssertionError(f"the {name} run took the routes {routes}")
     t_train = time.time()
@@ -855,7 +876,7 @@ def trained(trainer, name: str, want_routes: dict, want_launches: dict,
         history = trainer.train(epochs=2, experiment_name=f"chip_smoke_{name}")
         torch.cuda.synchronize()
     train_s = time.time() - t_train
-    launches = {"datagen": counted["datagen"], "critic_grad": counted["critic_grad"]}
+    launches = {k: counted[k] for k in KERNELS}
     if launches != want_launches:
         raise AssertionError(f"the {name} run launched {launches} ({counted['replayed']} in "
                              f"{counted['replays']} replays), not {want_launches}")
@@ -893,7 +914,6 @@ def train_scope(dev, gen, steps: int) -> dict:
     n_critic 5) outside the datagen kernel's scope, then one step outside
     both kernels' scope. Returns the phase line's fields."""
     from ofdmgan_tpu_torch.config import Config
-    from ofdmgan_tpu_torch.ops import critic_kernel as ck, datagen_kernel as dk
     from ofdmgan_tpu_torch.signal import datagen as sdg
     from ofdmgan_tpu_torch.training.trainer import Trainer
 
@@ -908,8 +928,10 @@ def train_scope(dev, gen, steps: int) -> dict:
     kw = dict(nonlinear=True, samples_per_epoch=steps * tr.batch_size, val_samples=256, seed=0,
               device="cuda", ema_decay=0.999)
     trainer = Trainer(cfg, **kw)
-    fading = trained(trainer, "scope", {"datagen": "plain", "critic": "kernel"},
-                     {"datagen": 0, "critic_grad": tr.n_critic * 2 * steps},
+    fading = trained(trainer, "scope", {"datagen": "plain", "critic": "kernel",
+                                        "generator": "kernel"},
+                     {"datagen": 0, "critic_grad": tr.n_critic * 2 * steps,
+                      "generator_grad": 2 * steps},
                      TRAIN_LOG_KEYS | {"val/rec_loss_ema", "val/mse_ema"})
 
     # resume from the last epoch's checkpoint: the same step on the same draws
@@ -936,17 +958,16 @@ def train_scope(dev, gen, steps: int) -> dict:
     cfg32 = dataclasses.replace(base, frame_length=32, channel_type="rician")
     trainer32 = Trainer(cfg32, samples_per_epoch=tr.batch_size, val_samples=64, seed=0,
                         device="cuda")
-    routes = {"datagen": trainer32.step.datagen_route, "critic": trainer32.step.critic_route}
-    if routes != {"datagen": "plain", "critic": "plain"}:
+    routes = _routes(trainer32.step)
+    if routes != {"datagen": "plain", "critic": "plain", "generator": "plain"}:
         raise AssertionError(f"the L = 32 Rician step took the routes {routes}")
-    dk.launches = 0
-    ck.launches = 0
+    _counts_reset()
     t_train = time.time()
     metrics = {k: float(v) for k, v in trainer32.step(trainer32.rng).items()}
     torch.cuda.synchronize()
     train_s = time.time() - t_train
-    launches = {"datagen": dk.launches, "critic_grad": ck.launches}
-    if launches != {"datagen": 0, "critic_grad": 0}:
+    launches = _counts()
+    if launches != dict.fromkeys(KERNELS, 0):
         raise AssertionError(f"the L = 32 step launched {launches}")
     if not all(math.isfinite(v) for v in metrics.values()):
         raise AssertionError(f"non-finite L = 32 step metrics: {metrics}")
@@ -1011,8 +1032,8 @@ def full_phase(dev, gen) -> dict:
     g_macs_fused = g_macs - dec1_macs // 3   # dec*_1 at 8/12 of their multiply-adds
     trainer = Trainer(cfg, samples_per_epoch=FULL_STEPS * FULL_B, val_samples=FULL_B, seed=0,
                       device=dev, generator=g, discriminator=d)
-    run = trained(trainer, "full", {"datagen": "kernel", "critic": "plain"},
-                  {"datagen": 2 * FULL_STEPS, "critic_grad": 0})
+    run = trained(trainer, "full", {"datagen": "kernel", "critic": "plain", "generator": "plain"},
+                  {"datagen": 2 * FULL_STEPS, "critic_grad": 0, "generator_grad": 0})
     flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     if flags != (False, False):
         raise AssertionError(f"TF32 was left on after the full run: {flags}")
@@ -1153,8 +1174,8 @@ def quant_phase(dev, gen, float_trainer, full_times: dict) -> dict:
 
     out = {}
     steps = 20
-    kernels = {"datagen": "kernel", "critic": "kernel"}
-    mini_launches = {"datagen": 2 * steps, "critic_grad": 2 * steps * 5}
+    kernels = {"datagen": "kernel", "critic": "kernel", "generator": "plain"}   # QAT: autograd
+    mini_launches = {"datagen": 2 * steps, "critic_grad": 2 * steps * 5, "generator_grad": 0}
     runs = {}
     for name, kw, residual in (("qat", dict(qat=True), False),
                                ("rtl_qat_residual", dict(qat=True, rtl_faithful=True), True)):
@@ -1247,8 +1268,9 @@ def quant_phase(dev, gen, float_trainer, full_times: dict) -> dict:
     g, d = build_models(cfg, "full", seed=0, quant_bits=QUANT_FULL_BITS)
     trainer = Trainer(cfg, samples_per_epoch=FULL_STEPS * FULL_B, val_samples=FULL_B, seed=0,
                       device=dev, generator=g, discriminator=d)
-    full = trained(trainer, "full_quant_bits", {"datagen": "kernel", "critic": "plain"},
-                   {"datagen": 2 * FULL_STEPS, "critic_grad": 0})
+    full = trained(trainer, "full_quant_bits",
+                   {"datagen": "kernel", "critic": "plain", "generator": "plain"},
+                   {"datagen": 2 * FULL_STEPS, "critic_grad": 0, "generator_grad": 0})
     full["export_layers"] = check_bundle(f"{cfg.export_dir}/generator")
     if full["export_layers"] != FULL_EXPORT_LAYERS:
         raise AssertionError(f"the full export has {full['export_layers']} layers")
@@ -1837,7 +1859,7 @@ def serve_phase(dev, mini_ckpt: str, rtl_ckpt: str, full_ckpt: str) -> dict:
     from ofdmgan_tpu_torch.config import Config
     from ofdmgan_tpu_torch.eval.loading import build_generator
     from ofdmgan_tpu_torch.models import MiniDiscriminator, MiniGenerator
-    from ofdmgan_tpu_torch.ops import critic_kernel as ck, datagen_kernel as dk
+    from ofdmgan_tpu_torch.ops import datagen_kernel as dk
     from ofdmgan_tpu_torch.signal import datagen as sdg
     from ofdmgan_tpu_torch.training import wgan_gp
     from ofdmgan_tpu_torch.training.schedules import make_adam
@@ -1953,12 +1975,13 @@ def serve_phase(dev, mini_ckpt: str, rtl_ckpt: str, full_ckpt: str) -> dict:
             sdg.DatagenConfig(), wgan_gp.LossConfig(), MAIN_B, reference=reference,
             matmul_precision="bfloat16")
     step = bf_steps["kernel"]
-    before = (dk.launches, ck.launches)
+    before = _counts()
     metrics = step(torch.Generator(device=dev).manual_seed(33))
-    bf_launches = {"datagen": dk.launches - before[0], "critic_grad": ck.launches - before[1]}
-    bf_routes = {"datagen": step.datagen_route, "critic": step.critic_route}
-    if (bf_routes != {"datagen": "kernel", "critic": "kernel"}
-            or bf_launches != {"datagen": 1, "critic_grad": step.loss_cfg.n_critic}
+    bf_launches = {k: v - before[k] for k, v in _counts().items()}
+    bf_routes = _routes(step)
+    if (bf_routes != {"datagen": "kernel", "critic": "kernel", "generator": "plain"}
+            or bf_launches != {"datagen": 1, "critic_grad": step.loss_cfg.n_critic,
+                               "generator_grad": 0}
             or not all(bool(torch.isfinite(v)) for v in metrics.values())):
         raise AssertionError(f"the bfloat16 step: routes {bf_routes}, launches {bf_launches}, "
                              f"metrics {metrics}")
@@ -2108,16 +2131,24 @@ def worst_update(start: dict, a: dict, b: dict, mom_a: dict, mom_b: dict) -> dic
 
 
 def _counts_reset() -> None:
+    """Set the kernel wrappers' launch counts and the collectives' traffic to 0."""
     from ofdmgan_tpu_torch.ops import critic_kernel as ck, datagen_kernel as dk
+    from ofdmgan_tpu_torch.ops import generator_kernel as gk
     from ofdmgan_tpu_torch.parallel import distributed
-    dk.launches = 0
-    ck.launches = 0
+    dk.launches = ck.launches = gk.launches = 0
     distributed.reset_traffic()
 
 
 def _counts() -> dict:
+    """The kernel wrappers' launches since ``_counts_reset``, by KERNELS."""
     from ofdmgan_tpu_torch.ops import critic_kernel as ck, datagen_kernel as dk
-    return {"datagen": dk.launches, "critic_grad": ck.launches}
+    from ofdmgan_tpu_torch.ops import generator_kernel as gk
+    return {"datagen": dk.launches, "critic_grad": ck.launches, "generator_grad": gk.launches}
+
+
+def _routes(step) -> dict:
+    """A step's route of each kernel (a step without a route takes the plain one)."""
+    return {k: getattr(step, f"{k}_route", "plain") for k in ("datagen", "critic", "generator")}
 
 
 def _deterministic(fn):
@@ -2158,6 +2189,7 @@ def parallel_rank_nccl(d: str) -> dict:
     launches = _counts()
     traffic = dict(distributed.traffic)
     plain = clone_step(trainer, False)
+    plain.generator_route = trainer.step.generator_route   # a sharded step's is autograd's
     seeds_dp, seeds_plain = torch.Generator().manual_seed(99), torch.Generator().manual_seed(99)
     equal = []
     for _ in range(PAR_CHECK_STEPS):
@@ -2170,8 +2202,7 @@ def parallel_rank_nccl(d: str) -> dict:
     ms_dp, peak_dp = timed_steps(trainer.step, seeds_dp, n=20)
     ms_plain, _ = timed_steps(plain, torch.Generator(device=dev).manual_seed(5), n=20)
     return {"backend": torch.distributed.get_backend(), "world": distributed.world_size(),
-            "routes": {"datagen": trainer.step.datagen_route,
-                       "critic": trainer.step.critic_route},
+            "routes": _routes(trainer.step),
             "launches": launches, "train_s": train_s, "history": history,
             "traffic_per_step": {k: v / (2 * PAR_MINI_STEPS) for k, v in traffic.items()},
             "bit_equal_steps": equal, "ms_per_step": {"dp_nccl": ms_dp, "plain": ms_plain},
@@ -2224,8 +2255,7 @@ def _leg_b(d: str) -> dict:
                               "the two-rank and the single-process mini steps")
     ms, _ = timed_steps(trainer.step, trainer.step_seeds, n=PAR_MINI_STEPS)
     steps = PAR_MINI_STEPS + PAR_CHECK_STEPS + 1
-    return {"routes": {"datagen": trainer.step.datagen_route,
-                       "critic": trainer.step.critic_route},
+    return {"routes": _routes(trainer.step),
             "launches": launches, "steps": steps, "train_s": train_s,
             "traffic_per_step": {k: v / steps for k, v in traffic.items()},
             "lockstep": lockstep, "update_max_abs_diff": diff, "update_max_rel_diff": rel,
@@ -2312,7 +2342,9 @@ def parallel_phase(dev) -> dict:
     out["a"] = distributed.launch(parallel_rank_nccl, 1, (d,), device="cuda:0",
                                   timeout_s=PAR_TIMEOUT_S)[0]
     a = out["a"]
-    want = {"datagen": 2 * PAR_MINI_STEPS, "critic_grad": 2 * PAR_MINI_STEPS * 5}
+    # a sharded step's generator update is autograd's
+    want = {"datagen": 2 * PAR_MINI_STEPS, "critic_grad": 2 * PAR_MINI_STEPS * 5,
+            "generator_grad": 0}
     if a["backend"] != "nccl" or a["launches"] != want:
         raise AssertionError(f"leg a: backend {a['backend']}, launches {a['launches']}, "
                              f"not {want} (1 datagen and 5 critic launches a step)")
@@ -2384,7 +2416,10 @@ def parallel_phase(dev) -> dict:
     out["bc_s"] = time.time() - t
     b = [r["b"] for r in ranks]
     for r, leg in enumerate(b):
-        if not all(leg["lockstep"]) or not all(leg["launches"].values()):
+        # both ranks' steps are sharded: the generator update is autograd's
+        if (not all(leg["lockstep"]) or not (leg["launches"]["datagen"]
+                                             and leg["launches"]["critic_grad"])
+                or leg["launches"]["generator_grad"] != 0):
             raise AssertionError(f"leg b, rank {r}: lockstep {leg['lockstep']}, "
                                  f"launches {leg['launches']}")
     out["b"] = {"ranks": b}
@@ -2434,7 +2469,7 @@ def parallel_phase(dev) -> dict:
                           f"lower-precision step from a sound layout")
     launches = {k: a["launches"][k] + sum(leg["launches"][k] for leg in b)
                 + sum(r["c"][n]["launches"][k] for r in ranks for n in PAR_LAYOUTS)
-                for k in ("datagen", "critic_grad")}
+                for k in KERNELS}
     out["launches"] = launches
     if failed:
         print(json.dumps({"phase": "parallel", "failed_gates": failed, **out}), flush=True)
@@ -2542,8 +2577,10 @@ def layout_phase(dev, gen) -> dict:
     cfg = _layout_cfg("flat")
     trainer = Trainer(cfg, samples_per_epoch=LAYOUT_STEPS * MAIN_B, val_samples=256, seed=0,
                       device=dev, flat_step=True)
-    leg = trained(trainer, "layout_flat", {"datagen": "kernel", "critic": "kernel"},
-                  {"datagen": 2 * LAYOUT_STEPS, "critic_grad": 10 * LAYOUT_STEPS})
+    leg = trained(trainer, "layout_flat",
+                  {"datagen": "kernel", "critic": "kernel", "generator": "plain"},
+                  {"datagen": 2 * LAYOUT_STEPS, "critic_grad": 10 * LAYOUT_STEPS,
+                   "generator_grad": 0})
     draws = sdg.make_draws(gen, MAIN_B, 16)
     alphas = [torch.rand(MAIN_B, generator=gen, device=dev) for _ in range(5)]
     batch = dk.synthetic_batch_from_draws(draws, trainer.dg_cfg)
@@ -2564,8 +2601,9 @@ def layout_phase(dev, gen) -> dict:
     cfg = _layout_cfg("headline", batch_size=LAYOUT_B)
     trainer = Trainer(cfg, samples_per_epoch=2 * LAYOUT_SCAN * LAYOUT_B, val_samples=LAYOUT_B,
                       seed=0, device=dev, scan_steps=LAYOUT_SCAN, **LAYOUT_HEADLINE)
-    routes = {"datagen": trainer.step.datagen_route, "critic": trainer.step.critic_route}
-    if routes != {"datagen": "kernel", "critic": "plain"} or not trainer.graphed:
+    routes = _routes(trainer.step)
+    if routes != {"datagen": "kernel", "critic": "plain", "generator": "plain"} \
+            or not trainer.graphed:
         raise AssertionError(f"the headline run took {routes}, graphed {trainer.graphed}")
     torch.cuda.reset_peak_memory_stats()
     t_run = time.time()
@@ -2573,9 +2611,10 @@ def layout_phase(dev, gen) -> dict:
         metrics = trainer.train_epoch()
         torch.cuda.synchronize()
     leg = {"routes": routes, "run_s": round(time.time() - t_run, 3), "metrics": metrics,
-           "launches": {k: counted[k] for k in ("datagen", "critic_grad")},
+           "launches": {k: counted[k] for k in KERNELS},
            "replays": counted["replays"], "replayed_launches": counted["replayed"]}
-    if leg["launches"] != {"datagen": 2 * LAYOUT_SCAN, "critic_grad": 0} or leg["replays"] != 1:
+    if (leg["launches"] != {"datagen": 2 * LAYOUT_SCAN, "critic_grad": 0, "generator_grad": 0}
+            or leg["replays"] != 1):
         raise AssertionError(f"the headline run launched {leg['launches']} "
                              f"({leg['replayed_launches']} in {leg['replays']} replays)")
     if not all(math.isfinite(v) for v in metrics.values()):
@@ -2700,7 +2739,8 @@ def layout_phase(dev, gen) -> dict:
             raise AssertionError("a replay after the generator moved on drew the same batch")
 
     _deterministic(compare)
-    want = {"datagen": LAYOUT_CHUNK, "critic_grad": 5 * LAYOUT_CHUNK}
+    want = {"datagen": LAYOUT_CHUNK, "critic_grad": 5 * LAYOUT_CHUNK,
+            "generator_grad": LAYOUT_CHUNK}
     if leg["launches_per_replay"] != want or any(leg["wrapper_counts_moved"].values()):
         raise AssertionError(f"a replay ran {leg['launches_per_replay']} launches by its trace, "
                              f"not {want}; wrapper counts moved {leg['wrapper_counts_moved']}")
@@ -2715,7 +2755,7 @@ def layout_phase(dev, gen) -> dict:
     out["c_chunk"] = leg
     # the phase's training runs (legs a and b)
     out["launches"] = {k: out["a_flat"]["launches"][k] + out["b_headline"]["launches"][k]
-                       for k in ("datagen", "critic_grad")}
+                       for k in KERNELS}
     if failed:
         print(json.dumps({"phase": "layout", "failed_gates": failed, **out}), flush=True)
         raise AssertionError(f"phase layout failed {failed}")
@@ -2765,8 +2805,7 @@ def _comp_leg_b(d: str) -> dict:
     m_single = _deterministic(lambda: single.run(*draws))
     diff, rel = updates_agree(start, all_params(trainer), all_params(single), None, "")
     ms, _ = timed_steps(trainer.step, trainer.rng, n=PAR_MINI_STEPS)
-    return {"routes": {"datagen": trainer.step.datagen_route,
-                       "critic": trainer.step.critic_route},
+    return {"routes": _routes(trainer.step),
             "launches": launches, "train_s": train_s, "same_on_every_rank": same,
             "traffic_per_step": {k: v / (PAR_MINI_STEPS + 1) for k, v in traffic.items()},
             "update_max_abs_diff": diff, "update_max_rel_diff": rel, "ms_per_step": ms,
@@ -2871,7 +2910,7 @@ def completion_phase(dev, gen, par_batch: int) -> dict:
     from ofdmgan_tpu_torch.training.wgan_gp import LossConfig, TrainStep
     d = "build/chip_smoke/completion"
     out, failed = {}, []
-    launches = {"datagen": 0, "critic_grad": 0}
+    launches = dict.fromkeys(KERNELS, 0)
 
     def add(counts):
         for k in launches:
@@ -2886,8 +2925,9 @@ def completion_phase(dev, gen, par_batch: int) -> dict:
     g, dd = build_models(cfg, "mini", seed=0, act_dtype="bfloat16", qat=True, rtl_faithful=True)
     trainer = Trainer(cfg, samples_per_epoch=COMP_STEPS * MAIN_B, val_samples=256, seed=0,
                       device=dev, generator=g, discriminator=dd, act_dtype="bfloat16")
-    a = trained(trainer, "completion_rtl_qat_bf16", {"datagen": "kernel", "critic": "plain"},
-                {"datagen": 2 * COMP_STEPS, "critic_grad": 0})
+    a = trained(trainer, "completion_rtl_qat_bf16",
+                {"datagen": "kernel", "critic": "plain", "generator": "plain"},
+                {"datagen": 2 * COMP_STEPS, "critic_grad": 0, "generator_grad": 0})
     add(a["launches"])
     cpu = torch.device("cpu")
     cpu_gen = torch.Generator().manual_seed(41)
@@ -2995,8 +3035,8 @@ def completion_phase(dev, gen, par_batch: int) -> dict:
     b = [r["b"] for r in ranks]
     for r, leg in enumerate(b):
         add(leg["launches"])
-        if not leg["same_on_every_rank"] or leg["routes"] != {"datagen": "kernel",
-                                                                "critic": "plain"} \
+        if not leg["same_on_every_rank"] \
+                or leg["routes"] != {"datagen": "kernel", "critic": "plain", "generator": "plain"} \
                 or leg["launches"]["datagen"] != PAR_MINI_STEPS + 1 \
                 or not leg["update_max_rel_diff"] <= STEP_RTOL:
             failed.append(f"leg b, rank {r}: same {leg['same_on_every_rank']}, routes "
@@ -3313,10 +3353,9 @@ def bench_phase(dev) -> dict:
 
     from ofdmgan_tpu_torch import bench, bench_full_train
     from ofdmgan_tpu_torch.device import card_name
-    from ofdmgan_tpu_torch.ops import critic_kernel as ck, datagen_kernel as dk
     d = "build/chip_smoke/bench"
     card = card_name(dev)
-    out = {"legs": {}, "launches": {"datagen": 0, "critic_grad": 0}}
+    out = {"legs": {}, "launches": dict.fromkeys(KERNELS, 0)}
     for name, flags in BENCH_LEGS.items():
         t = time.time()
         leg_windows = BENCH_LEG_WINDOWS.get(name, BENCH_WINDOWS)
@@ -3334,24 +3373,27 @@ def bench_phase(dev) -> dict:
                 return replay()
 
             b.chunk.replay = counting
-        dk.launches = 0
-        ck.launches = 0
+        _counts_reset()
         line = json.loads(json.dumps(b.run(card, *leg_windows)))   # the line as it prints
         torch.cuda.synchronize()
-        wrapped = {"datagen": dk.launches, "critic_grad": ck.launches}
+        wrapped = _counts()
         # every replay replays the one captured graph: the launches of one
         # more replay, counted from its trace, are those of each
-        per_replay = {"datagen": 0, "critic_grad": 0}
+        per_replay = dict.fromkeys(KERNELS, 0)
         if b.graphed:
             del b.chunk.replay
             _, per_replay = traced_replay(b, b.chunk.replay)
         launches = {k: wrapped[k] + replays[0] * per_replay[k] for k in wrapped}
         steps = args.scan_steps * sum(leg_windows)
         kernel_critic = "--pallas_critic" in flags
-        want = {"datagen": steps, "critic_grad": steps * 5 if kernel_critic else 0}
-        want_routes = {"datagen": "kernel", "critic": "kernel" if kernel_critic else "plain"}
-        # the packed step's critic is autograd: it has no critic route
-        routes = {"datagen": line["datagen_route"], "critic": line["critic_route"]}
+        kernel_gen = name == "kernels"   # the others store activations in bf16, or pack
+        want = {"datagen": steps, "critic_grad": steps * 5 if kernel_critic else 0,
+                "generator_grad": steps if kernel_gen else 0}
+        want_routes = {"datagen": "kernel", "critic": "kernel" if kernel_critic else "plain",
+                       "generator": "kernel" if kernel_gen else "plain"}
+        # the packed step's critic and generator are autograd: it has no such routes
+        routes = {"datagen": line["datagen_route"], "critic": line["critic_route"],
+                  "generator": _routes(b.step)["generator"]}
         if routes != want_routes or launches != want:
             raise AssertionError(f"bench leg {name} took {routes} and launched {launches} "
                                  f"({replays[0]} replays of {per_replay}), not {want_routes} "
@@ -3380,15 +3422,15 @@ def bench_phase(dev) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     t = time.time()
-    dk.launches = 0
-    ck.launches = 0
+    _counts_reset()
     grid = bench_full_train.main(["--device", str(dev), "--configs", *BENCH_GRID,
                                   "--scan_steps", str(BENCH_GRID_SCAN),
                                   "--windows", str(BENCH_GRID_WINDOWS),
                                   "--out", f"{d}/full_train_speed.json"])
-    launches = {"datagen": dk.launches, "critic_grad": ck.launches}
+    launches = _counts()
     want = {"datagen": len(BENCH_GRID) * BENCH_GRID_SCAN
-            * (bench_full_train.WARMUP_WINDOWS + BENCH_GRID_WINDOWS), "critic_grad": 0}
+            * (bench_full_train.WARMUP_WINDOWS + BENCH_GRID_WINDOWS), "critic_grad": 0,
+            "generator_grad": 0}
     if launches != want or list(grid["rows"]) != list(BENCH_GRID) or grid["device"] != card:
         raise AssertionError(f"bench_full_train launched {launches} (not {want}), rows "
                              f"{list(grid['rows'])}, device {grid['device']}")
@@ -3420,10 +3462,12 @@ def main() -> int:
     from ofdmgan_tpu_torch.device import resolve_device
     from ofdmgan_tpu_torch.models import MiniDiscriminator, MiniGenerator
     from ofdmgan_tpu_torch.ops import build, critic_kernel as ck, datagen_kernel as dk
+    from ofdmgan_tpu_torch.ops import generator_kernel as gk
     from ofdmgan_tpu_torch.signal import datagen as sdg
     from ofdmgan_tpu_torch.signal.impairments import ImpairmentConfig
     from ofdmgan_tpu_torch.training.trainer import Trainer
-    from ofdmgan_tpu_torch.training.wgan_gp import LossConfig, critic_loss_fn, matmul_precision
+    from ofdmgan_tpu_torch.training.wgan_gp import (LossConfig, critic_loss_fn,
+                                                    generator_loss_fn, matmul_precision)
 
     dev = resolve_device("cuda")
 
@@ -3618,6 +3662,54 @@ def main() -> int:
     log("critic", t, max_abs_err=critic_err, max_abs_err_bf16=critic_err_bf16,
         max_abs_err_storage=critic_err_storage, times=cr_times)
 
+    # ---- 3b. generator-gradient kernel against its plain version and autograd
+    t = time.time()
+    loss_cfg = LossConfig()
+    weights = (loss_cfg.adv_weight, loss_cfg.rec_weight)
+    gen_err, gen_times = {}, {}
+    for b in GENERATOR_BATCHES:
+        clean = torch.randn(b, 16, 2, generator=gen, device=dev)
+        noisy = clean + 0.3 * torch.randn(b, 16, 2, generator=gen, device=dev)
+
+        def kernel_call():
+            return gk.generator_grad(generator, critic, clean, noisy, *weights)
+
+        def plain_call():
+            return gk.generator_grad_plain(generator, critic, clean, noisy, *weights)
+
+        def autograd_update():   # the generator update the kernel replaces
+            loss, aux_a = generator_loss_fn(generator, critic, {"noisy": noisy, "clean": clean},
+                                            loss_cfg)
+            grads_a = torch.autograd.grad(loss, list(generator.parameters()))
+            return dict(zip((n for n, _ in generator.named_parameters()), grads_a)), aux_a
+
+        grads, aux = kernel_call()
+        again, aux_again = kernel_call()
+        torch.cuda.synchronize()
+        if not (all(torch.equal(again[n], grads[n]) for n in grads)
+                and all(torch.equal(aux_again[m], aux[m]) for m in aux)):
+            raise AssertionError(f"generator B={b}: two kernel calls differ")
+        for what, (ref, ref_aux) in (("plain", plain_call()), ("autograd", autograd_update())):
+            for name, r in ref.items():
+                check_close(grads[name], r, 1e-4, 1e-4 * float(r.abs().max()) + 1e-7,
+                            f"generator B={b} {name} vs {what}")
+                if what == "plain":
+                    gen_err[b] = max(gen_err.get(b, 0.0), float((grads[name] - r).abs().max()))
+            for m, r in ref_aux.items():
+                check_close(aux[m], r, 1e-4, 1e-5, f"generator B={b} {m} vs {what}")
+        bound, bound_by = generator_bound_ms(b)
+        row = {"ms": time_ms(kernel_call),
+               "device_us_per_launch": profiled_us_per_call(kernel_call, "generator_grad"),
+               "plain_ms": time_ms(plain_call), "autograd_ms": time_ms(autograd_update),
+               "bound_ms": bound, "bound_by": bound_by}
+        row["roofline_pct"] = 100.0 * bound / (row["device_us_per_launch"] / 1e3)
+        if b > MAIN_B:
+            fn, args, _out, _keep = gk.prepare(generator, critic, clean, noisy, *weights)
+            row["back_to_back_us_per_launch"] = back_to_back_us_per_launch(fn, args)
+            del _out, _keep
+        gen_times[b] = row
+    log("generator", t, max_abs_err=gen_err, two_calls_bit_equal=True, times=gen_times)
+
     # ---- 4. train through both kernels with the config defaults
     t = time.time()
     cfg = Config(checkpoint_dir="build/chip_smoke/checkpoints", log_dir="build/chip_smoke/logs",
@@ -3630,16 +3722,17 @@ def main() -> int:
         history = trainer.train(epochs=2, experiment_name="chip_smoke")
         torch.cuda.synchronize()
     train_s = time.time() - t_train
-    launches = {"datagen": counted["datagen"], "critic_grad": counted["critic_grad"]}
-    want = {"datagen": 2 * steps, "critic_grad": 2 * steps * cfg.training.n_critic}
+    launches = {k: counted[k] for k in KERNELS}
+    want = {"datagen": 2 * steps, "critic_grad": 2 * steps * cfg.training.n_critic,
+            "generator_grad": 2 * steps}
     if launches != want or not trainer.graphed or counted["replays"] != 1:
         raise AssertionError(f"the training run launched {launches} ({counted['replayed']} in "
                              f"{counted['replays']} replays), not {want}")
     if not all(math.isfinite(v) for rec in history for v in rec.values()) or len(history) != 2:
         raise AssertionError(f"non-finite or missing training metrics: {history}")
-    routes = {"datagen": trainer.step.datagen_route, "critic": trainer.step.critic_route}
-    if routes != {"datagen": "kernel", "critic": "kernel"}:
-        raise AssertionError(f"the default recipe did not route both kernels: {routes}")
+    routes = _routes(trainer.step)
+    if routes != {"datagen": "kernel", "critic": "kernel", "generator": "kernel"}:
+        raise AssertionError(f"the default recipe did not route the three kernels: {routes}")
 
     # one outer step from the trained state through the kernel path and the
     # plain path (FFT datagen, autograd critic), on the same draws and
@@ -3675,28 +3768,27 @@ def main() -> int:
     log("quant", t, **quant)
     quant_launches = {k: sum(quant[run]["launches"][k] for run in
                              ("qat", "rtl_qat_residual", "full_quant_bits"))
-                      for k in ("datagen", "critic_grad")}
+                      for k in KERNELS}
 
     # ---- 8. evaluation: the sweeps, BER, the report and the CLIs, on the
     # checkpoints of phases train and full; no kernel is on this path
     t = time.time()
-    dk.launches = 0
-    ck.launches = 0
+    _counts_reset()
     ev = eval_phase(dev, "build/chip_smoke/checkpoints/final_model",
                     "build/chip_smoke/full/checkpoints/final_model")
-    eval_launches = {"datagen": dk.launches, "critic_grad": ck.launches}
-    if eval_launches != {"datagen": 0, "critic_grad": 0}:
+    eval_launches = _counts()
+    if eval_launches != dict.fromkeys(KERNELS, 0):
         raise AssertionError(f"the evaluation path launched {eval_launches}")
     log("eval", t, launches=eval_launches, **ev)
 
     # ---- 9. hardware verification and the FPGA handoff, on the checkpoints
-    # of phases train and quant; selfcheck launches both kernels
+    # of phases train and quant; selfcheck's training step launches the
+    # three kernels
     t = time.time()
-    dk.launches = 0
-    ck.launches = 0
+    _counts_reset()
     ver = verify_phase(dev, "build/chip_smoke/checkpoints/final_model",
                        "build/chip_smoke/quant/rtl_qat_residual/checkpoints/final_model")
-    verify_launches = {"datagen": dk.launches, "critic_grad": ck.launches}
+    verify_launches = _counts()
     if not all(verify_launches.values()):
         raise AssertionError(f"the verification path launched {verify_launches}")
     log("verify", t, launches=verify_launches, **ver)
@@ -3705,12 +3797,11 @@ def main() -> int:
     # numerics, --remat and the image study; the datagen kernel feeds the
     # bench's loop and the steps
     t = time.time()
-    dk.launches = 0
-    ck.launches = 0
+    _counts_reset()
     srv = serve_phase(dev, "build/chip_smoke/checkpoints/final_model",
                       "build/chip_smoke/quant/rtl_qat_residual/checkpoints/final_model",
                       "build/chip_smoke/full/checkpoints/final_model")
-    serve_launches = {"datagen": dk.launches, "critic_grad": ck.launches}
+    serve_launches = _counts()
     if serve_launches["datagen"] <= 0 or serve_launches["critic_grad"] <= 0:
         raise AssertionError(f"the serving path launched {serve_launches}")
     log("serve", t, launches=serve_launches, **srv)
@@ -3743,24 +3834,21 @@ def main() -> int:
     # ---- 15. report
     db, dby = datagen_bound_ms(MAIN_B, 16)
     cb, cby = critic_bound_ms(MAIN_B)
-    dg_main, cr_main = dg_times[f"L16_B{MAIN_B}"], cr_times[MAIN_B]
+    gb, gby = generator_bound_ms(MAIN_B)
+    dg_main, cr_main, gn_main = dg_times[f"L16_B{MAIN_B}"], cr_times[MAIN_B], gen_times[MAIN_B]
+    by_path = {"train": launches, "train_scope": scope["fading"]["launches"],
+               "full": full["launches"], "quant": quant_launches, "eval": eval_launches,
+               "verify": verify_launches, "serve": serve_launches, "parallel": par["launches"],
+               "layout": lay["launches"], "completion": comp["launches"],
+               "bench": bnc["launches"]}
+    launches_by_path = {k: {path: n[k] for path, n in by_path.items()} for k in KERNELS}
     kernels = [
         {"name": "datagen", "route": "cuda", "source": "ofdmgan_tpu_torch/csrc/datagen.cu",
          "replaces": "ofdmgan_tpu/ops/pallas_datagen.py:200", "launches": launches["datagen"],
          "max_abs_err": datagen_err[f"L16_B{MAIN_B}"], "ms": dg_main["ms"],
          "plain_ms": dg_main["plain_ms"], "bound_ms": db, "bound_by": dby,
          "library_ms": None, "device_us_per_launch": dg_main["device_us_per_launch"],
-         "launches_by_path": {"train": launches["datagen"],
-                              "train_scope": scope["fading"]["launches"]["datagen"],
-                              "full": full["launches"]["datagen"],
-                              "quant": quant_launches["datagen"],
-                              "eval": eval_launches["datagen"],
-                              "verify": verify_launches["datagen"],
-                              "serve": serve_launches["datagen"],
-                              "parallel": par["launches"]["datagen"],
-                              "layout": lay["launches"]["datagen"],
-                              "completion": comp["launches"]["datagen"],
-                              "bench": bnc["launches"]["datagen"]}},
+         "launches_by_path": launches_by_path["datagen"]},
         {"name": "critic_grad", "route": "cuda", "source": "ofdmgan_tpu_torch/csrc/critic_grad.cu",
          "replaces": "ofdmgan_tpu/ops/pallas_critic.py:195", "launches": launches["critic_grad"],
          "max_abs_err": critic_err[MAIN_B], "ms": cr_main["ms"],
@@ -3773,17 +3861,15 @@ def main() -> int:
              "plain_ms": cr_main["storage_plain_ms"], "bound_ms": cr_main["storage_bound_ms"],
              "bound_by": critic_bound_ms(MAIN_B, storage_bytes=2)[1],
              "device_us_per_launch": cr_main["storage_device_us_per_launch"]}},
-         "launches_by_path": {"train": launches["critic_grad"],
-                              "train_scope": scope["fading"]["launches"]["critic_grad"],
-                              "full": full["launches"]["critic_grad"],
-                              "quant": quant_launches["critic_grad"],
-                              "eval": eval_launches["critic_grad"],
-                              "verify": verify_launches["critic_grad"],
-                              "serve": serve_launches["critic_grad"],
-                              "parallel": par["launches"]["critic_grad"],
-                              "layout": lay["launches"]["critic_grad"],
-                              "completion": comp["launches"]["critic_grad"],
-                              "bench": bnc["launches"]["critic_grad"]}},
+         "launches_by_path": launches_by_path["critic_grad"]},
+        # replaces no TPU kernel: the reference's generator update is autograd
+        {"name": "generator_grad", "route": "cuda",
+         "source": "ofdmgan_tpu_torch/csrc/generator_grad.cu", "replaces": None,
+         "launches": launches["generator_grad"], "max_abs_err": gen_err[MAIN_B],
+         "ms": gn_main["ms"], "plain_ms": gn_main["plain_ms"],
+         "autograd_ms": gn_main["autograd_ms"], "bound_ms": gb, "bound_by": gby,
+         "library_ms": None, "device_us_per_launch": gn_main["device_us_per_launch"],
+         "launches_by_path": launches_by_path["generator_grad"]},
     ]
     log("total", t0, retraced_windows=RETRACED)
     print(json.dumps({"kernels": kernels}), flush=True)

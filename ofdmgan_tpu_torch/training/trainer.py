@@ -630,7 +630,9 @@ class Trainer:
               f"gp {self.loss_cfg.gp_weight} | rec {self.loss_cfg.rec_weight} | "
               f"device {self.device} | datagen {self.step.datagen_route} | "
               f"critic {self.step.critic_route} | "
-              f"precision {self.step.matmul_precision} | rank {distributed.rank()} of "
+              f"precision {self.step.matmul_precision} | "
+              f"generator {self.step.generator_route} | "
+              f"rank {distributed.rank()} of "
               f"{distributed.world_size()} | mesh {mesh}", flush=True)
         t0 = time.time()
         try:

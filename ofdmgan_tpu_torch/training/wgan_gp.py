@@ -14,8 +14,8 @@ Counterpart of ``ofdmgan_tpu/training/wgan_gp.py:39-479``. Per outer step:
 Each kernel takes its part of the step where it covers the configuration,
 as the reference's ``use_pallas_datagen``/``use_pallas_critic`` flags do:
 ``TrainStep`` chooses once, at construction, from the configuration alone,
-and exposes the choice as ``datagen_route`` and ``critic_route``
-(``"kernel"`` or ``"plain"``):
+and exposes the choice as ``datagen_route``, ``critic_route`` and
+``generator_route`` (``"kernel"`` or ``"plain"``):
 
 * the batch comes from ``ops/datagen_kernel`` when ``datagen_kernel.covers``
   the ``DatagenConfig`` (AWGN, linear or the default nonlinear chain, a
@@ -23,11 +23,18 @@ and exposes the choice as ``datagen_route`` and ``critic_route``
   a ``batch_fn`` (the image datasets) takes the place of both;
 * each critic update's gradient comes from ``ops/critic_kernel`` when
   ``critic_kernel.covers`` the critic at the frame length (the mini critic at
-  16 samples), else from ``critic_loss_fn`` and autograd.
+  16 samples), else from ``critic_loss_fn`` and autograd;
+* the generator update's gradient and metrics come from
+  ``ops/generator_kernel`` where ``generator_kernel.covers`` the pair (the
+  deployed mini generator, no QAT, RTL or storage modes, against the mini
+  critic at 16 samples) on the critic kernel's route, at ``float32``, with
+  ``n_critic > 0`` and none of ``gen_forward``, ``critic_forward``,
+  ``flat``, ``shard``, ``remat`` or ``act_dtype``; else from
+  ``generator_loss_fn`` and autograd.
 
 A kernel route runs the CUDA kernel for tensors on the GPU and its plain
 version on the CPU; a kernel that fails to build or launch raises, it is
-never replaced by the plain route. ``reference=True`` makes both routes
+never replaced by the plain route. ``reference=True`` makes every route
 plain (the reference step with both flags off); tests and ``chip_smoke.py``
 hold the two against each other. ``n_critic == 0`` is the supervised path:
 no critic update, no adversarial term.
@@ -147,7 +154,7 @@ from torch.utils.checkpoint import checkpoint
 from ..models.critic import compute_gradient_penalty
 from ..models.flat import FlatStep
 from ..models.generator import FP8_DTYPES, as_dtype, storage_dtype
-from ..ops import bf16_dots, critic_kernel, datagen_kernel
+from ..ops import bf16_dots, critic_kernel, datagen_kernel, generator_kernel
 from ..signal.datagen import DatagenConfig, synthetic_batch
 from ..utils import spans
 from .schedules import AdamStepLR
@@ -359,9 +366,10 @@ class TrainStep:
 
     @reference.setter
     def reference(self, value: bool) -> None:
-        """Set the routes: both plain for the reference step, else each
+        """Set the routes: all plain for the reference step, else each
         kernel where it covers the configuration (the critic's always with
-        ``use_pallas_critic``)."""
+        ``use_pallas_critic``; the generator update's only beside the
+        critic kernel's, see the module's docstring)."""
         self._reference = bool(value)
         kernel_data = not value and self.batch_fn is None and datagen_kernel.covers(self.dg_cfg)
         kernel_critic = not value and (self.use_pallas_critic or (
@@ -372,6 +380,13 @@ class TrainStep:
             and critic_kernel.covers(self.critic, self.dg_cfg.frame_length)))
         self.datagen_route = "kernel" if kernel_data else "plain"
         self.critic_route = "kernel" if kernel_critic else "plain"
+        kernel_gen = (kernel_critic and self.loss_cfg.n_critic > 0 and self.act_dtype is None
+                      and self.matmul_precision == "float32" and not self.remat
+                      and self.gen_forward is None and self.critic_forward is None
+                      and self.flat is None and self.shard is None
+                      and generator_kernel.covers(self.generator, self.critic,
+                                                  self.dg_cfg.frame_length))
+        self.generator_route = "kernel" if kernel_gen else "plain"
 
     def draw_batch(self, rng: torch.Generator):
         if self.batch_fn is not None:
@@ -496,10 +511,16 @@ class TrainStep:
             for i, alpha in enumerate(alphas):
                 d_aux = self.critic_update(critic_batches[i] if critic_batches else batch0, alpha)
             with spans.span("step.generator"):
-                g_loss, g_aux = generator_loss_fn(self.forward, self.critic_apply(), batch0,
-                                                  self.loss_cfg,
-                                                  self.shard.mean if self.shard else torch.mean)
-                g_grads = torch.autograd.grad(g_loss, list(self.generator.parameters()))
+                if self.generator_route == "kernel":
+                    grads, g_aux = generator_kernel.generator_grad(
+                        self.generator, self.critic, batch0["clean"], batch0["noisy"],
+                        self.loss_cfg.adv_weight, self.loss_cfg.rec_weight)
+                    g_grads = [grads[name] for name, _ in self.generator.named_parameters()]
+                else:
+                    g_loss, g_aux = generator_loss_fn(
+                        self.forward, self.critic_apply(), batch0, self.loss_cfg,
+                        self.shard.mean if self.shard else torch.mean)
+                    g_grads = torch.autograd.grad(g_loss, list(self.generator.parameters()))
                 if self.shard is not None:
                     g_grads, g_aux = self.shard.reduce(self.generator, g_grads, g_aux)
                 _apply_grads(self.generator, self.opt_g, g_grads, self.flat_params)

@@ -11,7 +11,9 @@ Tolerances: the datagen kernel rtol 1e-5, atol 1e-6 at every frame length
 (the same float32 arithmetic; fused multiply-adds round differently, and the
 phase scan and the frame reductions sum in another order). The
 critic-gradient kernel rtol 1e-4, atol 1e-4 of each tensor's largest entry:
-it sums the batch in another order. The full U-Net family: the fused
+it sums the batch in another order. The generator-gradient kernel the
+same, against its plain version and against autograd of
+``generator_loss_fn``, and bit for bit against itself. The full U-Net family: the fused
 decoder within atol 1e-5 of the module's tanh output at float32; a full
 step on the kernel route and the reference step, each tensor's update
 within 1e-3 of its largest entry, as for the mini step. Quantization: the
@@ -45,7 +47,8 @@ intermediate activation straddles a bf16 step (at most 1 in 1,000 scores,
 within one bf16 step of the scale); a ``--remat`` mini
 step equals the plain step within 1e-6 of each tensor's largest update.
 Parallelism: the data-parallel mini step on a world of one over NCCL equals
-the plain step bit for bit (a mean over one rank is exact), with one
+the plain step on its routes (a sharded step's generator update is
+autograd's) bit for bit (a mean over one rank is exact), with one
 datagen and five critic launches a step; two ranks sharing the card over
 gloo stay bit for bit in lockstep and take, from a warmed-up state, a step
 within 1e-3 of each tensor's largest update of one process's step on both
@@ -55,8 +58,9 @@ chunk run eagerly from the same state and generator state, bit for bit
 (deterministic cuDNN; the same kernels on the same inputs), and so does a
 second replay from that state; a replay after the generator moved on draws
 other batches; neither the capture nor a replay moves a wrapper's launch
-count, and a replay runs, by its profiler trace, one datagen launch and
-five critic launches (each a per-block kernel and its sum) a step. The
+count, and a replay runs, by its profiler trace, one datagen launch,
+five critic launches and one generator-gradient launch (each gradient
+launch a per-block kernel and its sum) a step. The
 flat step's ``tf32_matmul`` on the card against the CPU: the critic's
 scores within 1e-6 and the penalty's parameter gradients within 1e-3 of
 each tensor's largest entry (both are sums of exact products of bf16
@@ -78,6 +82,7 @@ import torch
 from ofdmgan_tpu_torch.models import MiniDiscriminator, MiniGenerator
 from ofdmgan_tpu_torch.ops import critic_kernel as ck
 from ofdmgan_tpu_torch.ops import datagen_kernel as dk
+from ofdmgan_tpu_torch.ops import generator_kernel as gk
 from ofdmgan_tpu_torch.signal import datagen as sdg
 from ofdmgan_tpu_torch.signal.impairments import ImpairmentConfig
 from ofdmgan_tpu_torch.training.schedules import make_adam
@@ -85,6 +90,7 @@ from ofdmgan_tpu_torch.parallel import distributed
 from ofdmgan_tpu_torch.parallel.mesh import draw_seed, make_mesh, make_sharded_train_step
 from ofdmgan_tpu_torch.parallel.mesh import replica_generator
 from ofdmgan_tpu_torch.training.wgan_gp import LossConfig, TrainStep, critic_loss_fn
+from ofdmgan_tpu_torch.training.wgan_gp import generator_loss_fn
 
 pytestmark = pytest.mark.cuda
 
@@ -246,6 +252,62 @@ def test_kernels_are_deterministic(cuda):
             assert torch.equal(a[k], b[k]) and torch.equal(c[k], d[k]), (L, k)
 
 
+def _generator_close(got, ref):
+    torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4 * float(ref.abs().max()) + 1e-8)
+
+
+@pytest.mark.parametrize("b", [1, 63, 64, 65536])
+def test_generator_kernel_matches_plain_version_and_autograd(cuda, b):
+    """The generator-gradient kernel against its plain version and against
+    autograd of ``generator_loss_fn`` (float32, TF32 off), with weights
+    other than 1; each launch counted."""
+    from ofdmgan_tpu_torch.training.wgan_gp import matmul_precision
+
+    critic, generator, clean, _, noisy, _ = _critic_inputs(cuda, b, 11)
+    before = gk.launches
+    grads, aux = gk.generator_grad(generator, critic, clean, noisy, 0.7, 80.0)
+    assert gk.launches == before + 1
+    plain, plain_aux = gk.generator_grad_plain(generator, critic, clean, noisy, 0.7, 80.0)
+    with matmul_precision("float32"):
+        loss, ref_aux = generator_loss_fn(generator, critic, {"noisy": noisy, "clean": clean},
+                                          LossConfig(adv_weight=0.7, rec_weight=80.0))
+        ref = torch.autograd.grad(loss, list(generator.parameters()))
+    for (name, _), r in zip(generator.named_parameters(), ref):
+        _generator_close(grads[name], plain[name])
+        _generator_close(grads[name], r)
+    for name, r in ref_aux.items():
+        torch.testing.assert_close(aux[name], plain_aux[name], rtol=1e-4, atol=1e-5)
+        torch.testing.assert_close(aux[name], r, rtol=1e-4, atol=1e-5)
+
+
+def test_generator_kernel_is_deterministic(cuda):
+    """Two calls on the same inputs give bit-identical outputs."""
+    critic, generator, clean, _, noisy, _ = _critic_inputs(cuda, 65536, 12)
+    one, one_aux = gk.generator_grad(generator, critic, clean, noisy, 1.0, 100.0)
+    two, two_aux = gk.generator_grad(generator, critic, clean, noisy, 1.0, 100.0)
+    for name in one:
+        assert torch.equal(one[name], two[name]), name
+    for name in one_aux:
+        assert torch.equal(one_aux[name], two_aux[name]), name
+
+
+def test_a_refused_generator_kernel_launch_raises(cuda, monkeypatch):
+    """A launch the entry point refuses (here a batch of 0 frames) raises
+    and is not counted."""
+    critic, generator, clean, _, noisy, _ = _critic_inputs(cuda, 64, 13)
+    prepare = gk.prepare
+
+    def refused(*args):
+        fn, launch_args, out, keep = prepare(*args)
+        return fn, (0, *launch_args[1:]), out, keep
+
+    monkeypatch.setattr(gk, "prepare", refused)
+    before = gk.launches
+    with pytest.raises(RuntimeError, match="generator-gradient kernel launch failed"):
+        gk.generator_grad(generator, critic, clean, noisy, 1.0, 100.0)
+    assert gk.launches == before
+
+
 def test_kernel_step_matches_plain_step(cuda):
     """One outer step through both kernels and through the plain path, from
     the same warmed-up state and the same draws (see
@@ -263,9 +325,10 @@ def test_kernel_step_matches_plain_step(cuda):
     start = [p.detach().clone() for m in (g, d) for p in m.parameters()]
     draws = sdg.make_draws(gen, 64, 16)
     alphas = [torch.rand(64, generator=gen, device=cuda) for _ in range(5)]
-    before = (dk.launches, ck.launches)
+    before = (dk.launches, ck.launches, gk.launches)
     m_k = kern.run(dk.synthetic_batch_from_draws(draws, sdg.DatagenConfig()), alphas)
-    assert (dk.launches, ck.launches) == (before[0] + 1, before[1] + 5)
+    assert (dk.launches, ck.launches, gk.launches) == (before[0] + 1, before[1] + 5,
+                                                       before[2] + 1)
     m_p = plain.run(sdg.synthetic_batch_from_draws(draws, sdg.DatagenConfig()), alphas)
     for name in m_p:
         torch.testing.assert_close(m_k[name], m_p[name], rtol=1e-4, atol=1e-5)
@@ -666,6 +729,7 @@ def _world_of_one_rank() -> dict:
     dev = torch.device("cuda", torch.cuda.current_device())
     torch.backends.cudnn.deterministic = True
     dp, plain = _mini_pair(dev, 64, make_mesh({"dp": 1})), _mini_pair(dev, 64)
+    plain.generator_route = dp.generator_route   # a sharded step's is autograd's
     seeds_dp, seeds_plain = torch.Generator().manual_seed(3), torch.Generator().manual_seed(3)
     equal = []
     for _ in range(4):
@@ -674,12 +738,12 @@ def _world_of_one_rank() -> dict:
         equal.append(all(torch.equal(a, b) for a, b in zip(_params(dp), _params(plain)))
                      and all(torch.equal(m_dp[k], m_plain[k]) for k in m_plain))
     return {"backend": torch.distributed.get_backend(), "equal": equal,
-            "routes": (dp.datagen_route, dp.critic_route)}
+            "routes": (dp.datagen_route, dp.critic_route, dp.generator_route)}
 
 
 def test_data_parallel_world_of_one_over_nccl_equals_the_plain_step(cuda):
     out = distributed.launch(_world_of_one_rank, 1, device="cuda:0")[0]
-    assert out["backend"] == "nccl" and out["routes"] == ("kernel", "kernel")
+    assert out["backend"] == "nccl" and out["routes"] == ("kernel", "kernel", "plain")
     assert all(out["equal"]), out["equal"]
 
 
@@ -791,7 +855,7 @@ def _traced_kernels(fn):
         torch.cuda.synchronize()
         prof.step()
     names = ("box_muller_kernel", "datagen_kernel", "critic_grad_kernel",
-             "critic_grad_sum_kernel")
+             "critic_grad_sum_kernel", "generator_grad_kernel", "generator_grad_sum_kernel")
     events = [e for e in prof.key_averages() if e.device_type != torch.autograd.DeviceType.CPU]
     counts = {n: sum(e.count for e in events if re.search(rf"\b{n}\b", e.key)) for n in names}
     assert counts.pop("box_muller_kernel") > 0
@@ -804,7 +868,8 @@ def test_a_graphed_chunk_matches_its_eager_twin_and_counts_its_launches(cuda, tm
     torch.backends.cudnn.deterministic = True
     try:
         t.chunk()   # the warm-up chunk
-        dk.launches = ck.launches = 0
+        assert t.step.generator_route == "kernel"
+        dk.launches = ck.launches = gk.launches = 0
         t.chunk.capture()
         snap = ({k: v.detach().clone() for k, v in _graph_state(t).items()}, t.rng.get_state())
 
@@ -817,9 +882,10 @@ def test_a_graphed_chunk_matches_its_eager_twin_and_counts_its_launches(cuda, tm
 
         m_replay, traced = _traced_kernels(t.chunk.replay)
         m_replay = {k: float(v) for k, v in m_replay.items()}
-        assert (dk.launches, ck.launches) == (0, 0)
+        assert (dk.launches, ck.launches, gk.launches) == (0, 0, 0)
         assert traced == {"datagen_kernel": 4, "critic_grad_kernel": 20,
-                          "critic_grad_sum_kernel": 20}
+                          "critic_grad_sum_kernel": 20, "generator_grad_kernel": 4,
+                          "generator_grad_sum_kernel": 4}
         replayed = [p.detach().clone() for p in _params(t)]
         restore()
         m_eager = {k: float(v) for k, v in t.chunk.eager().items()}

@@ -3,8 +3,10 @@
 ``remat`` recomputes the step's model applies in the backward
 (``torch.utils.checkpoint``, non-reentrant, through the penalty's double
 backward): a step with it takes the same update as one without it, within
-1e-6 of each tensor's largest update, on both kernel routes' plain
-versions and on the reference routes, for the mini pair and a reduced full
+1e-6 of each tensor's largest update, on the datagen and critic kernel
+routes' plain versions and on the reference routes (the generator update
+on autograd's route on both sides: a remat step never takes the generator
+kernel, which keeps no activations to recompute), for the mini pair and a reduced full
 pair (L = 32, two levels, base 4); and it matches JAX's remat step
 (``make_train_step(..., remat=True)``) at the tolerances of
 ``tests/test_torch_train_step.py``. ``debug_nans`` stops at a NaN;
@@ -57,6 +59,8 @@ def _step(family, L, remat, reference, precision="float32"):
 ])
 def test_a_remat_step_takes_the_same_update(family, L, reference, precision):
     steps = [_step(family, L, remat, reference, precision) for remat in (False, True)]
+    assert steps[1].generator_route == "plain"
+    steps[0].generator_route = "plain"   # the recomputation is compared on autograd's route
     start = [p.detach().clone() for m in (steps[0].generator, steps[0].critic)
              for p in m.parameters()]
     # one warm-up step from the same draws first: Adam's first step is a sign
