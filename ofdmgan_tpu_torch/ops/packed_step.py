@@ -219,10 +219,14 @@ class PackedTrainStep:
             metrics = self.run(*self.draw(rng))
         return metrics
 
-    def critic_loss(self, batch, alpha: torch.Tensor):
+    def critic_loss(self, batch, alpha: torch.Tensor, fake: Optional[torch.Tensor] = None):
+        """L_D and its metrics; ``fake`` is the generator's no-grad forward
+        of ``batch``'s noisy rows, computed here when not given."""
         noisy, clean = batch["noisy"], batch["clean"]
-        with torch.no_grad():
-            fake = as_dtype(self.gen_fwd(noisy), noisy.dtype)
+        if fake is None:
+            with torch.no_grad():
+                fake = self.gen_fwd(noisy)
+        fake = as_dtype(fake, noisy.dtype)
         d_real, d_fake = self.critic_fwd(clean, noisy), self.critic_fwd(fake, noisy)
         wasserstein = d_fake.mean() - d_real.mean()
         with gp_precision(self.matmul_precision):
@@ -242,6 +246,8 @@ class PackedTrainStep:
                       "rec_loss": rec.detach()}
 
     def run(self, batch0, alphas: List[torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """The step on given draws; its critic updates share one generator
+        forward, as ``TrainStep.run``'s do on one batch."""
         if len(alphas) != self.loss_cfg.n_critic:
             raise ValueError(f"expected {self.loss_cfg.n_critic} alphas, got {len(alphas)}")
         if self.act_dtype is not None:
@@ -250,10 +256,14 @@ class PackedTrainStep:
         zero = torch.zeros((), device=batch0["noisy"].device)
         d_aux = {k: zero for k in METRIC_KEYS[:5]}
         with matmul_precision(self.matmul_precision):
-            for alpha in alphas:
-                loss, d_aux = self.critic_loss(batch0, alpha)
-                _apply_grads(self.critic, self.opt_d,
-                             torch.autograd.grad(loss, list(self.critic.parameters())))
+            if alphas:
+                with torch.no_grad():
+                    fake = self.gen_fwd(batch0["noisy"])
+                for alpha in alphas:
+                    loss, d_aux = self.critic_loss(batch0, alpha, fake)
+                    _apply_grads(self.critic, self.opt_d,
+                                 torch.autograd.grad(loss, list(self.critic.parameters())))
+                del fake
             g_loss, g_aux = self.generator_loss(batch0)
             _apply_grads(self.generator, self.opt_g,
                          torch.autograd.grad(g_loss, list(self.generator.parameters())))

@@ -4,12 +4,20 @@ update.
 Counterpart of ``ofdmgan_tpu/training/wgan_gp.py:39-479``. Per outer step:
 
     batch = synthetic datagen
+    fake = G(noisy) (no gradient), once, unless fresh_critic_batches
     repeat n_critic times (on the same batch unless fresh_critic_batches):
-        fake = G(noisy) (no gradient)
+        with fresh_critic_batches: fake = G(noisy) of this update's batch
         L_D  = E[D(fake, c)] - E[D(real, c)] + gp_weight * GP(real, fake, c)
         Adam update of D
     L_G = -E[D(G(noisy), c)] + rec_weight * L1(G(noisy), clean)
     Adam update of G
+
+The reference computes the fake inside each critic update
+(``ofdmgan_tpu/training/wgan_gp.py:337-341``). Where the updates share the
+outer batch, those fakes are one value: the same generator weights (they
+change only after the loop) on the same frames, through a forward that holds
+no state and draws nothing. So the step computes it once, in the first
+update, and hands it to the rest: the same operation on the same inputs.
 
 Each kernel takes its part of the step where it covers the configuration,
 as the reference's ``use_pallas_datagen``/``use_pallas_critic`` flags do:
@@ -461,15 +469,19 @@ class TrainStep:
         """The critic as the step applies it."""
         return self.critic_applies()[0]
 
-    def critic_update(self, batch, alpha: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def critic_update(self, batch, alpha: torch.Tensor, fake: Optional[torch.Tensor] = None):
+        """One critic update on ``batch``; returns its metrics and the fake
+        it read. ``fake`` is the generator's no-grad forward of the batch's
+        noisy frames, computed here when not given."""
         with spans.span("step.critic"):
+            if fake is None:
+                with torch.no_grad():
+                    fake = self.forward(batch["noisy"])
             if self.critic_route == "kernel":
                 # the stored batch and the generator's float32 output, uncast
                 # (reference wgan_gp.py:340-349); critic_loss_fn's cast of fake
                 # to the batch's format is the autograd route's
                 noisy, clean = batch["noisy"], batch["clean"]
-                with torch.no_grad():
-                    fake = self.forward(noisy)
                 if self.flat is not None:   # the kernel reads [B, L, 2] frames
                     noisy, clean, fake = (t.reshape(t.shape[0], -1, 2)
                                           for t in (noisy, clean, fake))
@@ -483,14 +495,14 @@ class TrainStep:
                 # modes' context (reference wgan_gp.py:92-98)
                 gp_context = (contextlib.nullcontext if critic_gp is not None
                               else functools.partial(gp_precision, self.matmul_precision))
-                loss, aux = critic_loss_fn(critic, self.forward, batch, alpha, self.loss_cfg,
+                loss, aux = critic_loss_fn(critic, lambda _: fake, batch, alpha, self.loss_cfg,
                                            gp_context, self.shard.frame_sum if self.shard else None,
                                            critic_gp, self.fuse_realfake)
                 grads = torch.autograd.grad(loss, list(self.critic.parameters()))
             if self.shard is not None:
                 grads, aux = self.shard.reduce(self.critic, grads, aux)
             _apply_grads(self.critic, self.opt_d, grads, self.flat_params)
-            return aux
+            return aux, fake
 
     def run(self, batch0, alphas: List[torch.Tensor],
             critic_batches: Optional[List[dict]] = None) -> Dict[str, torch.Tensor]:
@@ -498,7 +510,8 @@ class TrainStep:
         per critic update and, with ``fresh_critic_batches``, one batch per
         critic update. Returns the last critic update's metrics and the
         generator's, as 0-d tensors. ``act_dtype`` casts the outer batch
-        alone, as the reference does."""
+        alone, as the reference does. Without critic batches the first
+        update's fake serves every update (see the module's docstring)."""
         if len(alphas) != self.loss_cfg.n_critic:
             raise ValueError(f"expected {self.loss_cfg.n_critic} alphas, got {len(alphas)}")
         device = batch0["noisy"].device
@@ -508,8 +521,13 @@ class TrainStep:
         zero = torch.zeros((), device=device)
         d_aux = {k: zero for k in METRIC_KEYS[:5]}
         with spans.step(), matmul_precision(self.matmul_precision):
+            fake = None
             for i, alpha in enumerate(alphas):
-                d_aux = self.critic_update(critic_batches[i] if critic_batches else batch0, alpha)
+                if critic_batches:
+                    d_aux, _ = self.critic_update(critic_batches[i], alpha)
+                else:
+                    d_aux, fake = self.critic_update(batch0, alpha, fake)
+            del fake   # not held beside the generator update's allocations
             with spans.span("step.generator"):
                 if self.generator_route == "kernel":
                     grads, g_aux = generator_kernel.generator_grad(

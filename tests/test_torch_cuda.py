@@ -69,7 +69,11 @@ other bf16 neighbour). QAT with a storage format: an e4m3fn ``qat``
 forward NaN everywhere on the card as on the CPU, ``rtl_faithful`` alone
 finite and within atol 1e-5. The packed step: one step against the module
 step on its batch's ``[B, L, 2]`` view, within 1e-3 of each tensor's
-largest update.
+largest update. The critic updates' one generator forward an outer step:
+the mini step on its kernel routes and the full step on the autograd critic
+against the same step handed the outer batch once for each update (a
+forward each), bit for bit (deterministic cuDNN: the same calls on the
+same inputs).
 """
 
 import copy
@@ -373,6 +377,53 @@ def _full_step(cuda, reference=False, fused=False, precision="float32", L=64):
     return TrainStep(g, d, make_adam(g.parameters(), 2e-4), make_adam(d.parameters(), 2e-4),
                      sdg.DatagenConfig(frame_length=L), LossConfig(), 32, reference=reference,
                      gen_forward=fwd, matmul_precision=precision)
+
+
+@pytest.mark.parametrize("model", ["mini", "full"])
+def test_one_generator_forward_for_the_critic_updates_takes_the_per_update_step(cuda, model):
+    """One no-grad generator forward a step where the critic updates share
+    the outer batch, five where each is handed it; from the same state and
+    draws the two take the same step bit for bit: metrics, parameters and
+    Adam's moments. The mini at the benchmark's batch through the three
+    kernels, the full pair at a small size through the autograd critic."""
+    saved = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        if model == "mini":
+            with torch.random.fork_rng(devices=[]):
+                torch.manual_seed(0)
+                g, d = MiniGenerator().to(cuda), MiniDiscriminator().to(cuda)
+            once = TrainStep(g, d, make_adam(g.parameters(), 2e-4),
+                             make_adam(d.parameters(), 2e-4), sdg.DatagenConfig(), LossConfig(),
+                             65536)
+            routes = ("kernel", "kernel", "kernel")
+        else:
+            once = _full_step(cuda)
+            routes = ("kernel", "plain", "plain")
+        assert (once.datagen_route, once.critic_route, once.generator_route) == routes
+        gen = torch.Generator(device=cuda).manual_seed(7)
+        once(gen)
+        each = copy.deepcopy(once)
+        batch0, alphas, _ = once.draw(gen)
+        no_grad = {}
+        for step in (once, each):
+            no_grad[step] = 0
+            step.generator.register_forward_hook(
+                lambda module, args, out, step=step: no_grad.__setitem__(
+                    step, no_grad[step] + (not torch.is_grad_enabled())))
+        m_once = once.run(batch0, alphas)
+        m_each = each.run(batch0, alphas, [batch0] * len(alphas))
+        torch.cuda.synchronize()
+        assert (no_grad[once], no_grad[each]) == (1, 5)
+        assert {k: float(v) for k, v in m_once.items()} == \
+            {k: float(v) for k, v in m_each.items()}
+        for a, b in ((once.generator, each.generator), (once.critic, each.critic)):
+            assert all(torch.equal(p, q) for p, q in zip(a.parameters(), b.parameters()))
+        for a, b in ((once.opt_g, each.opt_g), (once.opt_d, each.opt_d)):
+            for sa, sb in zip(a.opt.state.values(), b.opt.state.values()):
+                assert all(torch.equal(sa[k], sb[k]) for k in ("exp_avg", "exp_avg_sq"))
+    finally:
+        torch.backends.cudnn.deterministic = saved
 
 
 @pytest.mark.parametrize("fused", [False, True])

@@ -15,6 +15,8 @@ is the module step's batch viewed ``[B/p, p*L*2]``: the same frames from the
 same generator, with no copy.
 """
 
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -222,3 +224,34 @@ def test_scan_steps_and_p2():
     with pytest.raises(ValueError):
         ps.build_packed_train_step(MiniGenerator(qat=True), tc, None, None, cfg, LossConfig(),
                                    B, p=P)
+
+
+def test_critic_updates_share_one_generator_forward(monkeypatch):
+    """``run`` computes the generator's packed forward once for its critic
+    updates; the per-update form, each ``critic_loss`` computing its own,
+    takes the same step from the same state and draws, bit for bit."""
+    _, _, _, _, tg, tc = _params()
+    _, cfg = _cfgs()
+
+    def build():
+        g, c = copy.deepcopy(tg), copy.deepcopy(tc)
+        return ps.build_packed_train_step(g, c, make_adam(g.parameters(), LR, (0.0, 0.9)),
+                                          make_adam(c.parameters(), LR, (0.0, 0.9)), cfg,
+                                          LossConfig(), B, p=P, matmul_precision="float32")
+
+    once, each = build(), build()
+    forwards = []
+    for step in (once, each):
+        fwd = step.gen_fwd
+        step.gen_fwd = lambda x, fwd=fwd, step=step: (
+            forwards.append((step, torch.is_grad_enabled())) or fwd(x))
+    monkeypatch.setattr(each, "critic_loss", lambda batch, alpha, fake=None:
+                        ps.PackedTrainStep.critic_loss(each, batch, alpha))
+    batch, alphas = once.draw(torch.Generator().manual_seed(4))
+    m_once, m_each = once.run(batch, alphas), each.run(batch, alphas)
+    # the per-update form: run's forward, unread, and one an update
+    assert forwards.count((once, False)) == 1 and forwards.count((each, False)) == 1 + 5
+    assert {k: float(v) for k, v in m_once.items()} == {k: float(v) for k, v in m_each.items()}
+    for a, b in ((once.generator, each.generator), (once.critic, each.critic)):
+        for p, q in zip(a.parameters(), b.parameters()):
+            assert torch.equal(p, q)

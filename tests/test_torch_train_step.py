@@ -286,3 +286,68 @@ def test_a_failing_kernel_raises(kernel, monkeypatch):
     step = _fresh_pair(False)
     with pytest.raises(RuntimeError, match="kernel launch failed"):
         step(torch.Generator().manual_seed(0))
+
+
+def _step_in_form(form):
+    """A mini step in one of the forms whose critic updates share the
+    outer batch's fake: the plain route, the kernel route (its plain
+    versions on the CPU), ``fuse_realfake``, ``remat`` and the flat step
+    on either route."""
+    from ofdmgan_tpu_torch.models import flat
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        g, d = MiniGenerator(), MiniDiscriminator()
+    kw = {"plain": dict(reference=True), "kernel": dict(reference=False),
+          "fuse_realfake": dict(reference=True, fuse_realfake=True),
+          "remat": dict(reference=True, remat=True),
+          "flat_plain": dict(reference=True, flat=flat.make_flat_step(g, d, 16, premap=True)),
+          "flat_kernel": dict(reference=False, flat=flat.make_flat_step(g, d, 16))}[form]
+    return TrainStep(g, d, make_adam(g.parameters(), LR), make_adam(d.parameters(), LR),
+                     DatagenConfig(), LossConfig(), B, **kw)
+
+
+@pytest.mark.parametrize("form", ["plain", "kernel", "fuse_realfake", "remat", "flat_plain",
+                                  "flat_kernel"])
+def test_one_generator_forward_for_the_critic_updates_takes_the_per_update_step(form):
+    """The step's critic updates on the outer batch share one generator
+    forward; the same step given that batch once for each update computes
+    the fake in each. From the same state and draws both take the same
+    step bit for bit: metrics, parameters and Adam's moments."""
+    once = _step_in_form(form)
+    assert once.critic_route == ("kernel" if form.endswith("kernel") else "plain")
+    gen = torch.Generator().manual_seed(1)
+    once(gen)
+    each = copy.deepcopy(once)
+    batch0, alphas, _ = once.draw(gen)
+    m_once = once.run(batch0, alphas)
+    m_each = each.run(batch0, alphas, [batch0] * len(alphas))
+    assert {k: float(v) for k, v in m_once.items()} == {k: float(v) for k, v in m_each.items()}
+    for a, b in ((once.generator, each.generator), (once.critic, each.critic)):
+        for p, q in zip(a.parameters(), b.parameters()):
+            assert torch.equal(p, q)
+    for a, b in ((once.opt_g, each.opt_g), (once.opt_d, each.opt_d)):
+        for sa, sb in zip(a.opt.state.values(), b.opt.state.values()):
+            assert all(torch.equal(sa[k], sb[k]) for k in ("exp_avg", "exp_avg_sq"))
+
+
+@pytest.mark.parametrize("reference", [True, False], ids=["plain_route", "kernel_route"])
+@pytest.mark.parametrize("loss,forwards", [
+    (LossConfig(), 1),
+    (LossConfig(fresh_critic_batches=True), 5),
+    (LossConfig(n_critic=0, adv_weight=0.0), 0),
+], ids=["one_batch", "fresh_batches", "supervised"])
+def test_no_grad_generator_forwards_a_step(reference, loss, forwards):
+    """One no-grad generator forward a step where the critic updates share
+    the outer batch, one an update with fresh batches, none on the
+    supervised path; the generator update's own forward runs with grad."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        g, d = MiniGenerator(), MiniDiscriminator()
+    step = TrainStep(g, d, make_adam(g.parameters(), LR), make_adam(d.parameters(), LR),
+                     DatagenConfig(), loss, B, reference=reference)
+    grad_modes = []
+    g.register_forward_hook(lambda module, args, out: grad_modes.append(torch.is_grad_enabled()))
+    metrics = step(torch.Generator().manual_seed(3))
+    assert grad_modes.count(False) == forwards
+    assert grad_modes.count(True) == (step.generator_route == "plain")
+    assert all(bool(torch.isfinite(v)) for v in metrics.values())
