@@ -4,9 +4,11 @@
 Builds the port's CUDA kernels from ``ofdmgan_tpu_torch/csrc``, holds each
 against its plain PyTorch version on the card (the generator-gradient
 kernel, which replaces no TPU kernel, also against autograd's generator
-update: phase ``generator``), trains the mini CWGAN-GP for two short epochs
-through the three kernels with ``Trainer``, and checks that the kernel path
-and the plain path take the same step. A mini trainer on the
+update: phase ``generator``; the critic-gradient kernel as built, its
+registers, spills, frames a warp and blocks an SM: phase ``critic``),
+trains the mini CWGAN-GP for two short epochs through the three kernels
+with ``Trainer``, and checks that the kernel path and the plain path take
+the same step. A mini trainer on the
 card runs its second epoch as one CUDA graph replay (``training/
 chunks.py``); a replay calls no wrapper, so wherever a trainer runs, its
 launches are the wrappers' counts plus the kernels each replay ran,
@@ -386,7 +388,7 @@ MAIN_B = 64                 # the mini recipe's batch (config/config.yaml)
 DATAGEN_BIG_B = 1 << 20
 DATAGEN_LENGTHS = (8, 16, 32, 64, 128, 1024)   # held against the plain version
 DATAGEN_TIMED = ((16, MAIN_B), (16, DATAGEN_BIG_B), (1024, 4096))   # (L, B)
-CRITIC_BATCHES = (1, MAIN_B, 1000, 65536)      # 1000: ragged against the 4-warp blocks
+CRITIC_BATCHES = (1, MAIN_B, 1000, 65536, 65537)   # ragged: 1000 one frame a warp, 65537 two
 CRITIC_TIMED = (MAIN_B, 65536)
 GENERATOR_BATCHES = (MAIN_B, 65536)   # the generator kernel: held and timed
 CRITIC_PARAMS = 521         # the mini critic's parameters, one gradient each
@@ -3659,8 +3661,21 @@ def main() -> int:
                     cr_times[b][f"{key}back_to_back_us_per_launch"] = \
                         back_to_back_us_per_launch(fn, args)
                     del _out, _scratch
+    # the per-block kernel as built: registers and spills of each
+    # instantiation (None where phase 1 found the library built), frames a
+    # warp and blocks at the timed batches, resident blocks an SM of each
+    # mapping (the variants of its tuning constants: scripts/critic_kernel_sweep.py)
+    lib, sms = ck._library(), build.sm_count(dev)
+    mapping = {}
+    for b in CRITIC_TIMED:
+        frames = lib.ofdm_critic_grad_frames_per_warp(b, sms)
+        mapping[b] = {"frames_per_warp": frames,
+                      "blocks": lib.ofdm_critic_grad_blocks(b, sms, frames)}
+    kernel_build = {"ptxas": ck.ptxas_summary(logs.get("critic_grad", "")) or None,
+                    "blocks_per_sm": {f: lib.ofdm_critic_grad_blocks_per_sm(f) for f in (1, 2)},
+                    "mapping": mapping}
     log("critic", t, max_abs_err=critic_err, max_abs_err_bf16=critic_err_bf16,
-        max_abs_err_storage=critic_err_storage, times=cr_times)
+        max_abs_err_storage=critic_err_storage, times=cr_times, kernel=kernel_build)
 
     # ---- 3b. generator-gradient kernel against its plain version and autograd
     t = time.time()

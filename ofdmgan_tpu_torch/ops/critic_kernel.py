@@ -40,10 +40,14 @@ error on them).
 
 A CUDA tensor goes to the kernel, which walks only the conv taps and writes
 the 521 parameter gradients and the five metrics in one call (a per-block
-stage and a second stage that sums the blocks, launched together). A CPU
-tensor goes to the plain version ``critic_grad_packed``: the dense sums of
-``critic_grad_plain`` on the packed rows, mapped back to the conv kernels
-through autograd of the Toeplitz expansion (``dense_grads_to_params``).
+stage and a second stage that sums the blocks, launched together). A warp
+of the kernel walks two frames at a time where the batch fills the card
+with two frames a warp, else one (``ofdm_critic_grad_frames_per_warp``);
+``launches_one_frame`` and ``launches_two_frames`` count the launches of
+each mapping. A CPU tensor goes to the plain version
+``critic_grad_packed``: the dense sums of ``critic_grad_plain`` on the
+packed rows, mapped back to the conv kernels through autograd of the
+Toeplitz expansion (``dense_grads_to_params``).
 """
 
 from __future__ import annotations
@@ -51,6 +55,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import re
 from typing import Dict, Tuple
 
 import torch
@@ -71,6 +76,9 @@ METRICS = ("d_loss", "wasserstein_distance", "gradient_penalty", "d_real_mean", 
 # into a CUDA graph is not counted: it runs at the graph's replays, which
 # call no wrapper (a profiler's trace counts those)
 launches = 0
+# the same launches by mapping: one frame a warp (small batches) or two
+launches_one_frame = 0
+launches_two_frames = 0
 
 
 def _same(t: torch.Tensor) -> torch.Tensor:
@@ -155,14 +163,42 @@ def critic_grad_plain(h0_real, h0_fake, eps, mats, gp_weight: float, slope: floa
 def _library():
     lib = build.load("critic_grad")
     i, ll, f, ptr = ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p
-    lib.ofdm_critic_grad_launch.argtypes = [i, i, f, f, i, i] + [ptr, ll, ll, ll] * 3 + [ptr] * 10
+    lib.ofdm_critic_grad_launch.argtypes = [i, i, i, f, f, i, i] + [ptr, ll, ll, ll] * 3 + [ptr] * 10
     lib.ofdm_critic_grad_launch.restype = i
     for name in ("ofdm_critic_grad_slot_floats", "ofdm_critic_grad_out_floats"):
         getattr(lib, name).argtypes = []
         getattr(lib, name).restype = i
-    lib.ofdm_critic_grad_blocks.argtypes = [i, i]
+    lib.ofdm_critic_grad_frames_per_warp.argtypes = [i, i]
+    lib.ofdm_critic_grad_frames_per_warp.restype = i
+    lib.ofdm_critic_grad_blocks.argtypes = [i, i, i]
     lib.ofdm_critic_grad_blocks.restype = i
+    lib.ofdm_critic_grad_blocks_per_sm.argtypes = [i]
+    lib.ofdm_critic_grad_blocks_per_sm.restype = i
     return lib
+
+
+def ptxas_summary(log: str) -> Dict[str, Dict[str, int]]:
+    """Registers and spilled bytes (stores) of each instantiation of the
+    per-block kernel in an nvcc ``-Xptxas -v`` log (``build.build``'s), by
+    ``frames<F>_<matmul precision>_<storage>``; a source whose kernel has no
+    frames parameter walks one frame a warp."""
+    out, key = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?(\S+?)'?(?:\s|$)", line)
+        if m:
+            k = re.search(r"critic_grad_kernelI(?:Li(\d)E)?Lb(\d)E(f|13__nv_bfloat16)", m.group(1))
+            key = k and (f"frames{k.group(1) or 1}_{'bf16' if k.group(2) == '1' else 'f32'}_"
+                         f"{'f32' if k.group(3) == 'f' else 'bf16'}")
+            continue
+        if key is None:
+            continue
+        spill = re.search(r"(\d+) bytes spill stores", line)
+        regs = re.search(r"Used (\d+) registers", line)
+        if spill:
+            out.setdefault(key, {})["spill_bytes"] = int(spill.group(1))
+        if regs:
+            out.setdefault(key, {})["registers"] = int(regs.group(1))
+    return out
 
 
 def covers(critic: nn.Module, frame_length: int) -> bool:
@@ -222,14 +258,15 @@ def prepare(critic, clean, fake, noisy, alpha, gp_weight: float, slope: float = 
         if p.device != dev or p.dtype != torch.float32 or not p.is_contiguous():
             raise ValueError(f"critic parameter {name} must be contiguous float32 on {dev}")
     lib = _library()
-    nblocks = lib.ofdm_critic_grad_blocks(b, build.sm_count(dev))
+    frames = lib.ofdm_critic_grad_frames_per_warp(b, build.sm_count(dev))
+    nblocks = lib.ofdm_critic_grad_blocks(b, build.sm_count(dev), frames)
     scratch = torch.empty(nblocks * lib.ofdm_critic_grad_slot_floats(),
                           dtype=torch.float32, device=dev)
     out = torch.empty(lib.ofdm_critic_grad_out_floats(), dtype=torch.float32, device=dev)
     if bf16:
         with torch.no_grad():
             params = {n: round_bf16(p) if n.endswith("weight") else p for n, p in params.items()}
-    args = (b, nblocks, slope, gp_weight, int(bf16), STORAGE[clean.dtype],
+    args = (b, nblocks, frames, slope, gp_weight, int(bf16), STORAGE[clean.dtype],
             clean.data_ptr(), *clean.stride(), fake.data_ptr(), *fake.stride(),
             noisy.data_ptr(), *noisy.stride(), alpha.data_ptr(),
             *(params[name].data_ptr() for name, _ in PARAM_SHAPES),
@@ -238,13 +275,17 @@ def prepare(critic, clean, fake, noisy, alpha, gp_weight: float, slope: float = 
 
 
 def _launch(critic, clean, fake, noisy, alpha, gp_weight: float, slope: float, bf16: bool):
-    global launches
+    global launches, launches_one_frame, launches_two_frames
     fn, args, out, _keep = prepare(critic, clean, fake, noisy, alpha, gp_weight, slope, bf16)
     err = fn(*args)
     if err != 0:
         raise RuntimeError(f"critic-gradient kernel launch failed: CUDA error {err}")
     if not torch.cuda.is_current_stream_capturing():   # a captured launch runs at replays
         launches += 1
+        if args[2] == 2:
+            launches_two_frames += 1
+        else:
+            launches_one_frame += 1
     return _split(out)
 
 

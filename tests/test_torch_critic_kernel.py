@@ -283,3 +283,37 @@ def test_other_frame_lengths_raise_a_value_error(L):
     for fn in (ck.critic_grad_packed, ck.critic_grad, ck.prepare):
         with pytest.raises(ValueError, match="frames of shape"):
             fn(critic, x, x, x, alpha, 10.0)
+
+
+PTXAS_LOG = """\
+ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__6208_14_critic_grad_cu_c7775540\
+18critic_grad_kernelILi2ELb0EfEEvNS_4ArgsIT1_EE' for 'sm_90a'
+ptxas info    : Function properties for _ZN47_GLOBAL__N__6208_14_critic_grad_cu_c7775540\
+18critic_grad_kernelILi2ELb0EfEEvNS_4ArgsIT1_EE
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 2112 bytes smem
+ptxas info    : Compiling entry function '_ZN47_GLOBAL__N__6208_14_critic_grad_cu_c7775540\
+18critic_grad_kernelILi1ELb1E13__nv_bfloat16EEvNS_4ArgsIT1_EE' for 'sm_90a'
+ptxas info    : Function properties for _ZN47_GLOBAL__N__6208_14_critic_grad_cu_c7775540\
+18critic_grad_kernelILi1ELb1E13__nv_bfloat16EEvNS_4ArgsIT1_EE
+    8 bytes stack frame, 16 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers, 8 bytes cumulative stack size, 2112 bytes smem
+ptxas info    : Compiling entry function '_ZN41_GLOBAL__N__b3cd_9_parent_cu_f225ee87\
+18critic_grad_kernelILb0EfEEvNS_4ArgsIT0_EE' for 'sm_90a'
+ptxas info    : Used 154 registers, used 1 barriers, 15968 bytes smem
+ptxas info    : Compiling entry function '_ZN41_GLOBAL__N__b3cd_9_parent_cu_f225ee87\
+22critic_grad_sum_kernelENS_6CommonE' for 'sm_90a'
+ptxas info    : Used 20 registers, used 1 barriers, 1024 bytes smem
+"""
+
+
+def test_ptxas_summary_reads_each_instantiation():
+    """Registers and spilled bytes by frames a warp, matmul precision and
+    storage; a kernel without a frames parameter counts as one frame a warp;
+    the second stage is left out."""
+    assert ck.ptxas_summary(PTXAS_LOG) == {
+        "frames2_f32_f32": {"spill_bytes": 0, "registers": 255},
+        "frames1_bf16_bf16": {"spill_bytes": 16, "registers": 255},
+        "frames1_f32_f32": {"registers": 154},
+    }
+    assert ck.ptxas_summary("") == {}

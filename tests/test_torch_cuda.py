@@ -11,7 +11,8 @@ Tolerances: the datagen kernel rtol 1e-5, atol 1e-6 at every frame length
 (the same float32 arithmetic; fused multiply-adds round differently, and the
 phase scan and the frame reductions sum in another order). The
 critic-gradient kernel rtol 1e-4, atol 1e-4 of each tensor's largest entry:
-it sums the batch in another order. The generator-gradient kernel the
+it sums the batch in another order; at one and at two frames a warp, on
+batches that leave a block's or a warp's last frame slots empty. The generator-gradient kernel the
 same, against its plain version and against autograd of
 ``generator_loss_fn``, and bit for bit against itself. The full U-Net family: the fused
 decoder within atol 1e-5 of the module's tanh output at float32; a full
@@ -37,8 +38,9 @@ integer path bit for bit; selfcheck's training step launches each kernel
 (1 datagen, 2 critic-gradient). The critic kernel's bf16 form at the same
 tolerances as its float32 form, against its plain version and autograd
 under bf16 matmul precision; its storage form (bf16 ``clean`` and
-``noisy``) at the same tolerances against its plain version, and bit for
-bit the kernel on the frames widened to float32. Serving: a mini program exported on the
+``noisy``) at the same tolerances against its plain version and against
+autograd on the widened frames, and bit for bit the kernel on the frames
+widened to float32. Serving: a mini program exported on the
 card reloads and agrees with the CPU's forward within atol 1e-6; the
 inference bench launches the datagen kernel once per apply in the loop and
 never when resident; the ``bfloat16`` mode's critic forward within rtol
@@ -111,6 +113,14 @@ def _critic_close(got, ref):
     torch.testing.assert_close(got, ref, rtol=1e-4, atol=1e-4 * float(ref.abs().max()) + 1e-7)
 
 
+# the critic kernel's batches: ragged against 4-warp blocks (1000); on an
+# H100 (132 SMs, 1,056 resident warps) odd and below two frames for every
+# warp (2001: one frame a warp), odd just above it (2113: two frames a warp,
+# the first warp takes a second pair whose second slot is empty); the mini
+# cell's (65536) and one past it (65537)
+CRITIC_BATCHES = [1, 64, 1000, 2001, 2113, 65536, 65537]
+
+
 @pytest.mark.parametrize("nonlinear", [False, True])
 @pytest.mark.parametrize("b", [64, 1000])
 def test_datagen_kernel_matches_plain_version(cuda, b, nonlinear):
@@ -181,12 +191,19 @@ def _critic_inputs(cuda, b, seed):
 
 
 @pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("b", [1, 64, 1000, 65536])
+@pytest.mark.parametrize("b", CRITIC_BATCHES)
 def test_critic_kernel_matches_plain_version(cuda, b, bf16):
+    """Against the plain version; the mini cell's batch takes two frames a
+    warp, the recipe's one (by the wrapper's counts by mapping)."""
     critic, _, clean, fake, noisy, alpha = _critic_inputs(cuda, b, 3)
-    before = ck.launches
+    before = (ck.launches, ck.launches_one_frame, ck.launches_two_frames)
     grads, aux = ck.critic_grad(critic, clean, fake, noisy, alpha, 10.0, bf16=bf16)
-    assert ck.launches == before + 1
+    counts = (ck.launches, ck.launches_one_frame, ck.launches_two_frames)
+    assert counts[0] == before[0] + 1 and counts[1] + counts[2] == sum(before[1:]) + 1
+    if b == 65536:
+        assert counts[2] == before[2] + 1
+    if b == 64:
+        assert counts[1] == before[1] + 1
     ref, ref_aux = ck.critic_grad_packed(critic, clean, fake, noisy, alpha, 10.0, bf16=bf16)
     for name, r in ref.items():
         _critic_close(grads[name], r)
@@ -195,7 +212,7 @@ def test_critic_kernel_matches_plain_version(cuda, b, bf16):
 
 
 @pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("b", [1, 64, 1000, 65536])
+@pytest.mark.parametrize("b", CRITIC_BATCHES)
 def test_critic_kernel_matches_autograd(cuda, b, bf16):
     """At float32 and at bfloat16 matmul precision (autograd's operands
     rounded by ``ops/bf16_dots.py``)."""
@@ -214,11 +231,14 @@ def test_critic_kernel_matches_autograd(cuda, b, bf16):
 
 
 @pytest.mark.parametrize("bf16", [False, True])
-@pytest.mark.parametrize("b", [1, 64, 65536])
+@pytest.mark.parametrize("b", CRITIC_BATCHES)
 def test_critic_kernel_storage_form_matches_plain_version(cuda, b, bf16):
     """bf16 ``clean`` and ``noisy`` (the reference's bf16 storage), float32
     ``fake`` and ``alpha``: widened where the kernel loads them, so its
-    result is the float32 kernel's on the widened frames."""
+    result is the float32 kernel's on the widened frames, and autograd's
+    on them."""
+    from ofdmgan_tpu_torch.training.wgan_gp import matmul_precision
+
     critic, _, clean, fake, noisy, alpha = _critic_inputs(cuda, b, 5)
     clean, noisy = clean.bfloat16(), noisy.bfloat16()
     before = ck.launches
@@ -235,17 +255,31 @@ def test_critic_kernel_storage_form_matches_plain_version(cuda, b, bf16):
         assert torch.equal(grads[name], wide[name]), name
     for name in aux:
         assert torch.equal(aux[name], wide_aux[name]), name
+    with matmul_precision("bfloat16" if bf16 else "float32"):
+        loss, auto_aux = critic_loss_fn(critic, lambda x: fake,
+                                        {"noisy": noisy.float(), "clean": clean.float()}, alpha,
+                                        LossConfig())
+        auto = torch.autograd.grad(loss, list(critic.parameters()))
+    for (name, _), r in zip(critic.named_parameters(), auto):
+        _critic_close(grads[name], r)
+    for name, r in auto_aux.items():
+        torch.testing.assert_close(aux[name], r, rtol=1e-4, atol=1e-5)
 
 
 def test_kernels_are_deterministic(cuda):
-    """Two calls on the same inputs give bit-identical outputs."""
-    critic, _, clean, fake, noisy, alpha = _critic_inputs(cuda, 65536, 6)
-    one, one_aux = ck.critic_grad(critic, clean, fake, noisy, alpha, 10.0)
-    two, two_aux = ck.critic_grad(critic, clean, fake, noisy, alpha, 10.0)
-    for name in one:
-        assert torch.equal(one[name], two[name]), name
-    for name in one_aux:
-        assert torch.equal(one_aux[name], two_aux[name]), name
+    """Two calls on the same inputs give bit-identical outputs: the critic
+    kernel in its four forms (float32 or bf16 precision, float32 or bf16
+    storage) at both mappings, and the datagen kernel."""
+    for b in (1000, 65536):
+        critic, _, clean, fake, noisy, alpha = _critic_inputs(cuda, b, 6)
+        for bf16 in (False, True):
+            for c_in, n_in in ((clean, noisy), (clean.bfloat16(), noisy.bfloat16())):
+                one, one_aux = ck.critic_grad(critic, c_in, fake, n_in, alpha, 10.0, bf16=bf16)
+                two, two_aux = ck.critic_grad(critic, c_in, fake, n_in, alpha, 10.0, bf16=bf16)
+                for name in one:
+                    assert torch.equal(one[name], two[name]), (b, bf16, c_in.dtype, name)
+                for name in one_aux:
+                    assert torch.equal(one_aux[name], two_aux[name]), (b, bf16, c_in.dtype, name)
     for L in (16, 1024):
         cfg = sdg.DatagenConfig(frame_length=L, nonlinear=True)
         draws = sdg.make_draws(torch.Generator(device=cuda).manual_seed(7), 256, L)
