@@ -5,10 +5,12 @@ Builds the port's CUDA kernels from ``ofdmgan_tpu_torch/csrc``, holds each
 against its plain PyTorch version at the main path's shapes and times it
 beside that version (phases ``datagen``, ``critic`` and ``generator``; the
 generator-gradient kernel, which replaces no TPU kernel, also beside
-autograd's generator update; the critic-gradient kernel as built: its
-registers, spills, frames a warp and blocks an SM; every other shape, form
-and precision: ``tests/test_torch_cuda.py``). Then it trains the mini
-CWGAN-GP for two short epochs through the three kernels with ``Trainer``,
+autograd's generator update, and the generator forward kernel, which
+replaces none either, beside the module's forward through cuDNN; the
+critic-gradient kernel as built: its registers, spills, frames a warp and
+blocks an SM; every other shape, form and precision:
+``tests/test_torch_cuda.py``). Then it trains the mini CWGAN-GP for two
+short epochs through the four kernels with ``Trainer``,
 and checks that the kernel path and the plain path take the same step. A
 mini trainer on the card runs its second epoch as one CUDA graph replay
 (``training/chunks.py``); a replay calls no wrapper, so wherever a trainer
@@ -666,8 +668,10 @@ TRACE_SENTINEL_GROUP = 64   # ... in groups, each ended by a synchronize
 TRACED_KERNELS = {"datagen": "datagen_kernel", "critic_grad": "critic_grad_kernel",
                   "critic_grad_sum": "critic_grad_sum_kernel",
                   "generator_grad": "generator_grad_kernel",
-                  "generator_grad_sum": "generator_grad_sum_kernel"}
-KERNELS = ("datagen", "critic_grad", "generator_grad")   # launch counts, by wrapper
+                  "generator_grad_sum": "generator_grad_sum_kernel",
+                  "generator_forward": "generator_forward_kernel"}
+# launch counts, by wrapper
+KERNELS = ("datagen", "critic_grad", "generator_grad", "generator_forward")
 
 
 class TraceLost(RuntimeError):
@@ -840,9 +844,9 @@ def train_scope(dev, gen, steps: int) -> dict:
               device="cuda", ema_decay=0.999)
     trainer = Trainer(cfg, **kw)
     fading = trained(trainer, "scope", {"datagen": "plain", "critic": "kernel",
-                                        "generator": "kernel"},
+                                        "generator": "kernel", "forward": "kernel"},
                      {"datagen": 0, "critic_grad": tr.n_critic * 2 * steps,
-                      "generator_grad": 2 * steps},
+                      "generator_grad": 2 * steps, "generator_forward": 2 * steps},
                      TRAIN_LOG_KEYS | {"val/rec_loss_ema", "val/mse_ema"})
 
     # resume from the last epoch's checkpoint: the same step on the same draws
@@ -870,7 +874,7 @@ def train_scope(dev, gen, steps: int) -> dict:
     trainer32 = Trainer(cfg32, samples_per_epoch=tr.batch_size, val_samples=64, seed=0,
                         device="cuda")
     routes = _routes(trainer32.step)
-    if routes != {"datagen": "plain", "critic": "plain", "generator": "plain"}:
+    if routes != {"datagen": "plain", "critic": "plain", "generator": "plain", "forward": "plain"}:
         raise AssertionError(f"the L = 32 Rician step took the routes {routes}")
     _counts_reset()
     t_train = time.time()
@@ -933,8 +937,10 @@ def full_phase(dev, gen) -> dict:
     g_macs_fused = g_macs - fused_saves
     trainer = Trainer(cfg, samples_per_epoch=FULL_STEPS * FULL_B, val_samples=FULL_B, seed=0,
                       device=dev, generator=g, discriminator=d)
-    run = trained(trainer, "full", {"datagen": "kernel", "critic": "plain", "generator": "plain"},
-                  {"datagen": 2 * FULL_STEPS, "critic_grad": 0, "generator_grad": 0})
+    run = trained(trainer, "full", {"datagen": "kernel", "critic": "plain", "generator": "plain",
+                                    "forward": "plain"},
+                  {"datagen": 2 * FULL_STEPS, "critic_grad": 0, "generator_grad": 0,
+                   "generator_forward": 0})
     flags = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     if flags != (False, False):
         raise AssertionError(f"TF32 was left on after the full run: {flags}")
@@ -1077,8 +1083,10 @@ def quant_phase(dev, gen, float_trainer, full_times: dict) -> dict:
 
     out = {}
     steps = 20
-    kernels = {"datagen": "kernel", "critic": "kernel", "generator": "plain"}   # QAT: autograd
-    mini_launches = {"datagen": 2 * steps, "critic_grad": 2 * steps * 5, "generator_grad": 0}
+    # QAT: autograd, and the module's forward
+    kernels = {"datagen": "kernel", "critic": "kernel", "generator": "plain", "forward": "plain"}
+    mini_launches = {"datagen": 2 * steps, "critic_grad": 2 * steps * 5, "generator_grad": 0,
+                     "generator_forward": 0}
     runs = {}
     for name, kw, residual in (("qat", dict(qat=True), False),
                                ("rtl_qat_residual", dict(qat=True, rtl_faithful=True), True)):
@@ -1172,8 +1180,10 @@ def quant_phase(dev, gen, float_trainer, full_times: dict) -> dict:
     trainer = Trainer(cfg, samples_per_epoch=FULL_STEPS * FULL_B, val_samples=FULL_B, seed=0,
                       device=dev, generator=g, discriminator=d)
     full = trained(trainer, "full_quant_bits",
-                   {"datagen": "kernel", "critic": "plain", "generator": "plain"},
-                   {"datagen": 2 * FULL_STEPS, "critic_grad": 0, "generator_grad": 0})
+                   {"datagen": "kernel", "critic": "plain", "generator": "plain",
+                    "forward": "plain"},
+                   {"datagen": 2 * FULL_STEPS, "critic_grad": 0, "generator_grad": 0,
+                    "generator_forward": 0})
     full["export_layers"] = check_bundle(f"{cfg.export_dir}/generator")
     if full["export_layers"] != FULL_EXPORT_LAYERS:
         raise AssertionError(f"the full export has {full['export_layers']} layers")
@@ -1880,9 +1890,10 @@ def serve_phase(dev, mini_ckpt: str, rtl_ckpt: str, full_ckpt: str) -> dict:
     metrics = step(torch.Generator(device=dev).manual_seed(33))
     bf_launches = {k: v - before[k] for k, v in _counts().items()}
     bf_routes = _routes(step)
-    if (bf_routes != {"datagen": "kernel", "critic": "kernel", "generator": "plain"}
+    if (bf_routes != {"datagen": "kernel", "critic": "kernel", "generator": "plain",
+                      "forward": "plain"}
             or bf_launches != {"datagen": 1, "critic_grad": step.loss_cfg.n_critic,
-                               "generator_grad": 0}
+                               "generator_grad": 0, "generator_forward": 0}
             or not all(bool(torch.isfinite(v)) for v in metrics.values())):
         raise AssertionError(f"the bfloat16 step: routes {bf_routes}, launches {bf_launches}, "
                              f"metrics {metrics}")
@@ -2036,7 +2047,7 @@ def _counts_reset() -> None:
     from ofdmgan_tpu_torch.ops import critic_kernel as ck, datagen_kernel as dk
     from ofdmgan_tpu_torch.ops import generator_kernel as gk
     from ofdmgan_tpu_torch.parallel import distributed
-    dk.launches = ck.launches = gk.launches = 0
+    dk.launches = ck.launches = gk.launches = gk.forward_launches = 0
     distributed.reset_traffic()
 
 
@@ -2044,12 +2055,14 @@ def _counts() -> dict:
     """The kernel wrappers' launches since ``_counts_reset``, by KERNELS."""
     from ofdmgan_tpu_torch.ops import critic_kernel as ck, datagen_kernel as dk
     from ofdmgan_tpu_torch.ops import generator_kernel as gk
-    return {"datagen": dk.launches, "critic_grad": ck.launches, "generator_grad": gk.launches}
+    return {"datagen": dk.launches, "critic_grad": ck.launches, "generator_grad": gk.launches,
+            "generator_forward": gk.forward_launches}
 
 
 def _routes(step) -> dict:
     """A step's route of each kernel (a step without a route takes the plain one)."""
-    return {k: getattr(step, f"{k}_route", "plain") for k in ("datagen", "critic", "generator")}
+    return {k: getattr(step, f"{k}_route", "plain")
+            for k in ("datagen", "critic", "generator", "forward")}
 
 
 def _deterministic(fn):
@@ -2090,7 +2103,9 @@ def parallel_rank_nccl(d: str) -> dict:
     launches = _counts()
     traffic = dict(distributed.traffic)
     plain = clone_step(trainer, False)
-    plain.generator_route = trainer.step.generator_route   # a sharded step's is autograd's
+    # a sharded step's generator update is autograd's, its forward the module's
+    plain.generator_route = trainer.step.generator_route
+    plain.forward_route = trainer.step.forward_route
     seeds_dp, seeds_plain = torch.Generator().manual_seed(99), torch.Generator().manual_seed(99)
     equal = []
     for _ in range(PAR_CHECK_STEPS):
@@ -2243,9 +2258,9 @@ def parallel_phase(dev) -> dict:
     out["a"] = distributed.launch(parallel_rank_nccl, 1, (d,), device="cuda:0",
                                   timeout_s=PAR_TIMEOUT_S)[0]
     a = out["a"]
-    # a sharded step's generator update is autograd's
+    # a sharded step's generator update is autograd's, its forward the module's
     want = {"datagen": 2 * PAR_MINI_STEPS, "critic_grad": 2 * PAR_MINI_STEPS * 5,
-            "generator_grad": 0}
+            "generator_grad": 0, "generator_forward": 0}
     if a["backend"] != "nccl" or a["launches"] != want:
         raise AssertionError(f"leg a: backend {a['backend']}, launches {a['launches']}, "
                              f"not {want} (1 datagen and 5 critic launches a step)")
@@ -2317,10 +2332,12 @@ def parallel_phase(dev) -> dict:
     out["bc_s"] = time.time() - t
     b = [r["b"] for r in ranks]
     for r, leg in enumerate(b):
-        # both ranks' steps are sharded: the generator update is autograd's
+        # both ranks' steps are sharded: the generator update is autograd's,
+        # its forward the module's
         if (not all(leg["lockstep"]) or not (leg["launches"]["datagen"]
                                              and leg["launches"]["critic_grad"])
-                or leg["launches"]["generator_grad"] != 0):
+                or leg["launches"]["generator_grad"] != 0
+                or leg["launches"]["generator_forward"] != 0):
             raise AssertionError(f"leg b, rank {r}: lockstep {leg['lockstep']}, "
                                  f"launches {leg['launches']}")
     out["b"] = {"ranks": b}
@@ -2478,9 +2495,10 @@ def layout_phase(dev, gen) -> dict:
     trainer = Trainer(cfg, samples_per_epoch=LAYOUT_STEPS * MAIN_B, val_samples=256, seed=0,
                       device=dev, flat_step=True)
     leg = trained(trainer, "layout_flat",
-                  {"datagen": "kernel", "critic": "kernel", "generator": "plain"},
+                  {"datagen": "kernel", "critic": "kernel", "generator": "plain",
+                   "forward": "plain"},
                   {"datagen": 2 * LAYOUT_STEPS, "critic_grad": 10 * LAYOUT_STEPS,
-                   "generator_grad": 0})
+                   "generator_grad": 0, "generator_forward": 0})
     draws = sdg.make_draws(gen, MAIN_B, 16)
     alphas = [torch.rand(MAIN_B, generator=gen, device=dev) for _ in range(5)]
     batch = dk.synthetic_batch_from_draws(draws, trainer.dg_cfg)
@@ -2502,8 +2520,8 @@ def layout_phase(dev, gen) -> dict:
     trainer = Trainer(cfg, samples_per_epoch=2 * LAYOUT_SCAN * LAYOUT_B, val_samples=LAYOUT_B,
                       seed=0, device=dev, scan_steps=LAYOUT_SCAN, **LAYOUT_HEADLINE)
     routes = _routes(trainer.step)
-    if routes != {"datagen": "kernel", "critic": "plain", "generator": "plain"} \
-            or not trainer.graphed:
+    if routes != {"datagen": "kernel", "critic": "plain", "generator": "plain",
+                  "forward": "plain"} or not trainer.graphed:
         raise AssertionError(f"the headline run took {routes}, graphed {trainer.graphed}")
     torch.cuda.reset_peak_memory_stats()
     t_run = time.time()
@@ -2513,7 +2531,8 @@ def layout_phase(dev, gen) -> dict:
     leg = {"routes": routes, "run_s": round(time.time() - t_run, 3), "metrics": metrics,
            "launches": {k: counted[k] for k in KERNELS},
            "replays": counted["replays"], "replayed_launches": counted["replayed"]}
-    if (leg["launches"] != {"datagen": 2 * LAYOUT_SCAN, "critic_grad": 0, "generator_grad": 0}
+    if (leg["launches"] != {"datagen": 2 * LAYOUT_SCAN, "critic_grad": 0, "generator_grad": 0,
+                            "generator_forward": 0}
             or leg["replays"] != 1):
         raise AssertionError(f"the headline run launched {leg['launches']} "
                              f"({leg['replayed_launches']} in {leg['replays']} replays)")
@@ -2640,7 +2659,7 @@ def layout_phase(dev, gen) -> dict:
 
     _deterministic(compare)
     want = {"datagen": LAYOUT_CHUNK, "critic_grad": 5 * LAYOUT_CHUNK,
-            "generator_grad": LAYOUT_CHUNK}
+            "generator_grad": LAYOUT_CHUNK, "generator_forward": LAYOUT_CHUNK}
     if leg["launches_per_replay"] != want or any(leg["wrapper_counts_moved"].values()):
         raise AssertionError(f"a replay ran {leg['launches_per_replay']} launches by its trace, "
                              f"not {want}; wrapper counts moved {leg['wrapper_counts_moved']}")
@@ -2826,8 +2845,10 @@ def completion_phase(dev, gen, par_batch: int) -> dict:
     trainer = Trainer(cfg, samples_per_epoch=COMP_STEPS * MAIN_B, val_samples=256, seed=0,
                       device=dev, generator=g, discriminator=dd, act_dtype="bfloat16")
     a = trained(trainer, "completion_rtl_qat_bf16",
-                {"datagen": "kernel", "critic": "plain", "generator": "plain"},
-                {"datagen": 2 * COMP_STEPS, "critic_grad": 0, "generator_grad": 0})
+                {"datagen": "kernel", "critic": "plain", "generator": "plain",
+                 "forward": "plain"},
+                {"datagen": 2 * COMP_STEPS, "critic_grad": 0, "generator_grad": 0,
+                 "generator_forward": 0})
     add(a["launches"])
     cpu = torch.device("cpu")
     cpu_gen = torch.Generator().manual_seed(41)
@@ -2936,7 +2957,8 @@ def completion_phase(dev, gen, par_batch: int) -> dict:
     for r, leg in enumerate(b):
         add(leg["launches"])
         if not leg["same_on_every_rank"] \
-                or leg["routes"] != {"datagen": "kernel", "critic": "plain", "generator": "plain"} \
+                or leg["routes"] != {"datagen": "kernel", "critic": "plain", "generator": "plain",
+                                     "forward": "plain"} \
                 or leg["launches"]["datagen"] != PAR_MINI_STEPS + 1 \
                 or not leg["update_max_rel_diff"] <= STEP_RTOL:
             failed.append(f"leg b, rank {r}: same {leg['same_on_every_rank']}, routes "
@@ -3286,14 +3308,19 @@ def bench_phase(dev) -> dict:
         launches = {k: wrapped[k] + replays[0] * per_replay[k] for k in wrapped}
         steps = args.scan_steps * sum(leg_windows)
         kernel_critic = "--pallas_critic" in flags
-        kernel_gen = name == "kernels"   # the others store activations in bf16, or pack
+        # the others store activations in bf16, or pack: the generator kernels'
+        # routes only at float32 with no storage format
+        kernel_gen = name == "kernels"
         want = {"datagen": steps, "critic_grad": steps * 5 if kernel_critic else 0,
-                "generator_grad": steps if kernel_gen else 0}
+                "generator_grad": steps if kernel_gen else 0,
+                "generator_forward": steps if kernel_gen else 0}
         want_routes = {"datagen": "kernel", "critic": "kernel" if kernel_critic else "plain",
-                       "generator": "kernel" if kernel_gen else "plain"}
+                       "generator": "kernel" if kernel_gen else "plain",
+                       "forward": "kernel" if kernel_gen else "plain"}
         # the packed step's critic and generator are autograd: it has no such routes
         routes = {"datagen": line["datagen_route"], "critic": line["critic_route"],
-                  "generator": _routes(b.step)["generator"]}
+                  "generator": _routes(b.step)["generator"],
+                  "forward": _routes(b.step)["forward"]}
         if routes != want_routes or launches != want:
             raise AssertionError(f"bench leg {name} took {routes} and launched {launches} "
                                  f"({replays[0]} replays of {per_replay}), not {want_routes} "
@@ -3330,7 +3357,7 @@ def bench_phase(dev) -> dict:
     launches = _counts()
     want = {"datagen": len(BENCH_GRID) * BENCH_GRID_SCAN
             * (bench_full_train.WARMUP_WINDOWS + BENCH_GRID_WINDOWS), "critic_grad": 0,
-            "generator_grad": 0}
+            "generator_grad": 0, "generator_forward": 0}
     if launches != want or list(grid["rows"]) != list(BENCH_GRID) or grid["device"] != card:
         raise AssertionError(f"bench_full_train launched {launches} (not {want}), rows "
                              f"{list(grid['rows'])}, device {grid['device']}")
@@ -3366,9 +3393,11 @@ def main() -> int:
     from ofdmgan_tpu_torch.signal import datagen as sdg
     from ofdmgan_tpu_torch.signal.impairments import ImpairmentConfig
     from ofdmgan_tpu_torch.training.trainer import Trainer
-    from ofdmgan_tpu_torch.training.wgan_gp import LossConfig, critic_loss_fn, generator_loss_fn
+    from ofdmgan_tpu_torch.training.wgan_gp import (LossConfig, critic_loss_fn,
+                                                    generator_loss_fn, matmul_precision)
     from ofdmgan_tpu_torch.utils import profiling
-    from ofdmgan_tpu_torch.utils.kernel_checks import (assert_datagen_close, assert_grads_close,
+    from ofdmgan_tpu_torch.utils.kernel_checks import (assert_datagen_close,
+                                                       assert_forward_close, assert_grads_close,
                                                        assert_metrics_close)
     from ofdmgan_tpu_torch.utils.profiling import device_us_per_call
     from perfbench import counts
@@ -3519,9 +3548,35 @@ def main() -> int:
             fn, args, _out, _keep = gk.prepare(generator, critic, clean, noisy, *weights)
             row["back_to_back_us_per_launch"] = back_to_back_us_per_launch(fn, args)
             del _out, _keep
-    log("generator", t, max_abs_err=gen_err, times=gen_times)
+    # the forward kernel (the critic updates' fake) against its plain
+    # version, and its times beside its plain version's and cuDNN's forward
+    fwd_err, fwd_times = {}, {}
+    for b in KERNEL_BATCHES:
+        noisy = torch.randn(b, 16, 2, generator=gen, device=dev)
+        call = lambda fn=gk.generator_forward: fn(generator, noisy)  # noqa: E731
 
-    # ---- 4. train through the three kernels with the config defaults
+        def library():   # the module's forward through cuDNN and ATen, TF32 off
+            with torch.no_grad(), matmul_precision("float32"):
+                return generator(noisy)
+
+        got, ref = call(), gk.generator_forward_plain(generator, noisy)
+        assert_forward_close(got, ref, f"generator forward B={b}")
+        fwd_err[b] = float((got - ref).abs().max())
+        bound, bound_by = gk.forward_bound_ms(b, counts.FP32_FLOPS_PER_S, counts.HBM_BYTES_PER_S)
+        row = fwd_times[b] = {
+            "ms": time_ms(call),
+            "device_us_per_launch": device_us_per_call(call, "generator_forward"),
+            "plain_ms": time_ms(lambda: gk.generator_forward_plain(generator, noisy)),
+            "library_ms": time_ms(library), "bound_ms": bound, "bound_by": bound_by}
+        row["roofline_pct"] = 100.0 * bound / (row["device_us_per_launch"] / 1e3)
+        if b > MAIN_B:
+            fn, args, _out, _keep = gk.prepare_forward(generator, noisy)
+            row["back_to_back_us_per_launch"] = back_to_back_us_per_launch(fn, args)
+            del _out, _keep
+    log("generator", t, max_abs_err=gen_err, times=gen_times,
+        forward={"max_abs_err": fwd_err, "times": fwd_times})
+
+    # ---- 4. train through the four kernels with the config defaults
     t = time.time()
     cfg = Config(checkpoint_dir="build/chip_smoke/checkpoints", log_dir="build/chip_smoke/logs",
                  export_dir="build/chip_smoke/export")
@@ -3535,15 +3590,16 @@ def main() -> int:
     train_s = time.time() - t_train
     launches = {k: counted[k] for k in KERNELS}
     want = {"datagen": 2 * steps, "critic_grad": 2 * steps * cfg.training.n_critic,
-            "generator_grad": 2 * steps}
+            "generator_grad": 2 * steps, "generator_forward": 2 * steps}
     if launches != want or not trainer.graphed or counted["replays"] != 1:
         raise AssertionError(f"the training run launched {launches} ({counted['replayed']} in "
                              f"{counted['replays']} replays), not {want}")
     if not all(math.isfinite(v) for rec in history for v in rec.values()) or len(history) != 2:
         raise AssertionError(f"non-finite or missing training metrics: {history}")
     routes = _routes(trainer.step)
-    if routes != {"datagen": "kernel", "critic": "kernel", "generator": "kernel"}:
-        raise AssertionError(f"the default recipe did not route the three kernels: {routes}")
+    if routes != {"datagen": "kernel", "critic": "kernel", "generator": "kernel",
+                  "forward": "kernel"}:
+        raise AssertionError(f"the default recipe did not route the four kernels: {routes}")
 
     # one outer step from the trained state through the kernel path and the
     # plain path (FFT datagen, autograd critic and generator), on the same
@@ -3594,7 +3650,7 @@ def main() -> int:
 
     # ---- 9. hardware verification and the FPGA handoff, on the checkpoints
     # of phases train and quant; selfcheck's training step launches the
-    # three kernels
+    # four kernels
     t = time.time()
     _counts_reset()
     ver = verify_phase(dev, "build/chip_smoke/checkpoints/final_model",
@@ -3647,6 +3703,7 @@ def main() -> int:
     cb, cby = counts.critic_bound_ms(MAIN_B)
     gb, gby = generator_bound_ms(MAIN_B)
     dg_main, cr_main, gn_main = dg_times[f"L16_B{MAIN_B}"], cr_times[MAIN_B], gen_times[MAIN_B]
+    fw_main = fwd_times[MAIN_B]
     by_path = {"train": launches, "train_scope": scope["fading"]["launches"],
                "full": full["launches"], "quant": quant_launches, "eval": eval_launches,
                "verify": verify_launches, "serve": serve_launches, "parallel": par["launches"],
@@ -3681,6 +3738,15 @@ def main() -> int:
          "autograd_ms": gn_main["autograd_ms"], "bound_ms": gb, "bound_by": gby,
          "library_ms": None, "device_us_per_launch": gn_main["device_us_per_launch"],
          "launches_by_path": launches_by_path["generator_grad"]},
+        # replaces no TPU kernel: the reference's forward is XLA's; its
+        # library is the module's forward (cuDNN and ATen)
+        {"name": "generator_forward", "route": "cuda",
+         "source": "ofdmgan_tpu_torch/csrc/generator_forward.cu", "replaces": None,
+         "launches": launches["generator_forward"], "max_abs_err": fwd_err[MAIN_B],
+         "ms": fw_main["ms"], "plain_ms": fw_main["plain_ms"], "bound_ms": fw_main["bound_ms"],
+         "bound_by": fw_main["bound_by"], "library_ms": fw_main["library_ms"],
+         "device_us_per_launch": fw_main["device_us_per_launch"],
+         "launches_by_path": launches_by_path["generator_forward"]},
     ]
     log("total", t0, retraced_windows={"timing": profiling.retraces, **RETRACED})
     print(json.dumps({"kernels": kernels}), flush=True)

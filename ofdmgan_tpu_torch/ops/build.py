@@ -25,7 +25,7 @@ from ..utils import spans
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "ofdmgan_tpu_torch"
-SOURCES = ("datagen", "critic_grad", "generator_grad")
+SOURCES = ("datagen", "critic_grad", "generator_grad", "generator_forward")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 TIMEOUT_S = 120.0

@@ -32,6 +32,14 @@ views of one output buffer) or raises; a CPU tensor goes to the plain
 version ``generator_grad_plain``, the same hand-derived math on whole
 batches, a conv as a sum over its three taps of the positions that fall
 inside the frame (``_tap``). Neither runs autograd.
+
+``generator_forward`` is the generator's forward alone, the no-grad fake
+that an outer step's critic updates read: the CUDA kernel
+``csrc/generator_forward.cu`` (one launch, one thread a frame) for a
+CUDA tensor, or its plain
+version ``generator_forward_plain``, the forward at the top of
+``generator_grad_plain``, for a CPU one. ``covers_forward`` says where the
+kernel computes the module's forward, ``forward_bound_ms`` its least time.
 """
 
 from __future__ import annotations
@@ -53,24 +61,35 @@ PARAM_SHAPES = (("enc1.weight", (4, 2, 3)), ("enc1.bias", (4,)),
                 ("dec1.weight", (4, 8, 3)), ("dec1.bias", (4,)),
                 ("out_conv.weight", (2, 4, 3)), ("out_conv.bias", (2,)))
 METRICS = ("g_loss", "adv_loss", "rec_loss")
+FORWARD_MACS = 1608        # a frame's multiply-adds of the forward, the taps inside the frame
+FORWARD_BYTES = 2 * 32 * 4  # a frame's noisy read and fake written, float32
 # kernel launches run since the caller last set it to 0; a launch captured
 # into a CUDA graph is not counted: it runs at the graph's replays, which
-# call no wrapper (a profiler's trace counts those)
+# call no wrapper (a profiler's trace counts those). ``launches`` counts the
+# gradient kernel's, ``forward_launches`` the forward kernel's.
 launches = 0
+forward_launches = 0
 
 
-def covers(generator: nn.Module, critic: nn.Module, frame_length: int) -> bool:
-    """Whether the kernel computes ``generator``'s loss gradient against
-    ``critic`` on frames of ``frame_length`` samples: the deployed
-    ``MiniGenerator`` (2->4->8->4->2, k3; no ``input_residual``,
-    ``rtl_faithful``, ``qat`` or ``act_dtype``) at 16 samples, with a critic
-    the critic kernel covers that stores nothing in a storage format."""
+def covers_forward(generator: nn.Module, frame_length: int) -> bool:
+    """Whether the forward kernel computes ``generator``'s forward on frames
+    of ``frame_length`` samples: the deployed ``MiniGenerator``
+    (2->4->8->4->2, k3, tanh head; no ``input_residual``, ``rtl_faithful``,
+    ``qat`` or ``act_dtype``) at 16 samples."""
     if not isinstance(generator, MiniGenerator) or frame_length != FRAME[0]:
         return False
     shapes = tuple((n, tuple(p.shape)) for n, p in generator.named_parameters())
     return (shapes == PARAM_SHAPES and not generator.input_residual
-            and not generator.rtl_faithful and not generator.qat
-            and generator.act_dtype is None and getattr(critic, "act_dtype", None) is None
+            and not generator.rtl_faithful and not generator.qat and generator.act_dtype is None)
+
+
+def covers(generator: nn.Module, critic: nn.Module, frame_length: int) -> bool:
+    """Whether the kernel computes ``generator``'s loss gradient against
+    ``critic`` on frames of ``frame_length`` samples: a generator the
+    forward kernel covers (``covers_forward``), with a critic the critic
+    kernel covers that stores nothing in a storage format."""
+    return (covers_forward(generator, frame_length)
+            and getattr(critic, "act_dtype", None) is None
             and critic_kernel.covers(critic, frame_length))
 
 
@@ -90,6 +109,34 @@ def check_inputs(generator: nn.Module, critic: nn.Module, clean: torch.Tensor,
         for name, p in module.named_parameters():
             if p.device != dev or p.dtype != torch.float32 or not p.is_contiguous():
                 raise ValueError(f"parameter {name} must be contiguous float32 on {dev}")
+
+
+def check_forward_inputs(generator: nn.Module, noisy: torch.Tensor) -> None:
+    """Raise unless the forward kernel covers ``generator`` on float32
+    frames ``[B, 16, 2]``, B >= 1, with float32 parameters on their device."""
+    if not covers_forward(generator, FRAME[0]):
+        raise ValueError("the generator forward kernel covers the deployed mini generator "
+                         "at 16 samples")
+    dev = noisy.device
+    if noisy.dtype != torch.float32 or noisy.dim() != 3 or tuple(noisy.shape[1:]) != FRAME \
+            or noisy.shape[0] < 1:
+        raise ValueError(f"noisy must be float32 [B >= 1, *{FRAME}], not {noisy.dtype} "
+                         f"{list(noisy.shape)}")
+    for name, p in generator.named_parameters():
+        if p.device != dev or p.dtype != torch.float32 or not p.is_contiguous():
+            raise ValueError(f"parameter {name} must be contiguous float32 on {dev}")
+
+
+def forward_bound_ms(b: int, flops_per_s: float, bytes_per_s: float) -> Tuple[float, str]:
+    """``(ms, "operations" or "bytes")``: the forward kernel's least time at
+    batch ``b`` on a card of these peaks (float32 outside the tensor cores;
+    memory), ``FORWARD_MACS`` multiply-adds a frame against
+    ``FORWARD_BYTES`` a frame and the parameters read once, and what sets
+    it."""
+    t_ops = b * 2 * FORWARD_MACS / flops_per_s * 1e3
+    n_params = sum(math.prod(shape) for _, shape in PARAM_SHAPES)
+    t_bytes = (b * FORWARD_BYTES + n_params * 4) / bytes_per_s * 1e3
+    return max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes"
 
 
 def _tap(l_in: int, l_out: int, stride: int, k: int) -> Tuple[slice, slice]:
@@ -137,22 +184,38 @@ def _pairs(x: torch.Tensor) -> torch.Tensor:
     return x[..., 0::2] + x[..., 1::2]
 
 
+def _forward(g: nn.Module, x: torch.Tensor):
+    """The generator's forward on ``x`` ``[B, 2, 16]``, channels first: the
+    ``(activation, mask)`` of enc1's and the bottleneck's LeakyReLU, the
+    bottleneck upsampled, dec1's mask, the skip upsampled and the output ``y``."""
+    gs = g.leaky_slope
+    a1, m1 = _leaky(_conv(x, g.enc1.weight, g.enc1.bias, 2), gs)
+    a2, m2 = _leaky(_conv(a1, g.bottleneck.weight, g.bottleneck.bias, 2), gs)
+    up1 = a2.repeat_interleave(2, dim=-1)
+    a3, m3 = _leaky(_conv(up1, g.dec1.weight, g.dec1.bias, 1), gs)
+    up2 = (a3 + a1).repeat_interleave(2, dim=-1)
+    y = torch.tanh(_conv(up2, g.out_conv.weight, g.out_conv.bias, 1))
+    return (a1, m1), (a2, m2), up1, m3, up2, y
+
+
+def generator_forward_plain(generator: nn.Module, noisy: torch.Tensor) -> torch.Tensor:
+    """The forward kernel's plain version: ``noisy`` ``[B, 16, 2]`` -> the
+    fake ``[B, 16, 2]``, no gradient."""
+    check_forward_inputs(generator, noisy)
+    with torch.no_grad():
+        return _forward(generator, noisy.transpose(1, 2))[-1].transpose(1, 2)
+
+
 def generator_grad_plain(generator: nn.Module, critic: nn.Module, clean: torch.Tensor,
                          noisy: torch.Tensor, adv_weight: float, rec_weight: float):
     """The kernel's plain version: ``(gradient per parameter, metrics)``."""
     check_inputs(generator, critic, clean, noisy)
     g, d = generator, critic
-    gs, cs = g.leaky_slope, d.leaky_slope
+    cs = d.leaky_slope
     b = clean.shape[0]
     with torch.no_grad():
         x = noisy.transpose(1, 2)
-        # the generator's forward, channels first
-        a1, m1 = _leaky(_conv(x, g.enc1.weight, g.enc1.bias, 2), gs)
-        a2, m2 = _leaky(_conv(a1, g.bottleneck.weight, g.bottleneck.bias, 2), gs)
-        up1 = a2.repeat_interleave(2, dim=-1)
-        a3, m3 = _leaky(_conv(up1, g.dec1.weight, g.dec1.bias, 1), gs)
-        up2 = (a3 + a1).repeat_interleave(2, dim=-1)
-        y = torch.tanh(_conv(up2, g.out_conv.weight, g.out_conv.bias, 1))
+        (a1, m1), (a2, m2), up1, m3, up2, y = _forward(g, x)
         # the critic's forward on (fake, noisy) and its gradient back to fake
         # for a unit score
         c1, cm1 = _leaky(_conv(torch.cat([y, x], dim=1), d.conv1.weight, d.conv1.bias, 2), cs)
@@ -175,6 +238,56 @@ def generator_grad_plain(generator: nn.Module, critic: nn.Module, clean: torch.T
         rec = diff.abs().sum() / (32 * b)
     aux = {"g_loss": adv_weight * adv + rec_weight * rec, "adv_loss": adv, "rec_loss": rec}
     return grads, aux
+
+
+def bind_forward(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the argument and result types of the forward kernel's C entry
+    points on a library built from ``csrc/generator_forward.cu``."""
+    i, ll, f, ptr = ctypes.c_int, ctypes.c_longlong, ctypes.c_float, ctypes.c_void_p
+    lib.ofdm_generator_forward_launch.argtypes = [i, i, f, ptr, ll, ll, ll] + [ptr] * 10
+    lib.ofdm_generator_forward_launch.restype = i
+    lib.ofdm_generator_forward_blocks.argtypes = [i, i]
+    lib.ofdm_generator_forward_blocks.restype = i
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _forward_library():
+    return bind_forward(build.load("generator_forward"))
+
+
+def prepare_forward(generator, noisy):
+    """Check the inputs and allocate the output: ``(launcher, its arguments,
+    output, parameters the launch reads)``. ``launcher(*args)`` launches the
+    forward kernel once and returns a CUDA error code;
+    ``generator_forward`` does this and counts it; repeating it times the
+    kernel alone."""
+    check_forward_inputs(generator, noisy)
+    b, dev = noisy.shape[0], noisy.device
+    lib = _forward_library()
+    out = torch.empty((b, *FRAME), dtype=torch.float32, device=dev)
+    params = list(generator.parameters())
+    args = (b, lib.ofdm_generator_forward_blocks(b, build.sm_count(dev)),
+            generator.leaky_slope, noisy.data_ptr(), *noisy.stride(),
+            *(p.data_ptr() for p in params), out.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    return lib.ofdm_generator_forward_launch, args, out, params
+
+
+def generator_forward(generator: nn.Module, noisy: torch.Tensor) -> torch.Tensor:
+    """``generator``'s forward of ``noisy`` ``[B, 16, 2]``, no gradient: the
+    kernel for a CUDA tensor (one launch; the fake contiguous), the plain
+    version for a CPU one."""
+    global forward_launches
+    if noisy.device.type != "cuda":
+        return generator_forward_plain(generator, noisy)
+    fn, args, out, _keep = prepare_forward(generator, noisy)
+    err = fn(*args)
+    if err != 0:
+        raise RuntimeError(f"generator forward kernel launch failed: CUDA error {err}")
+    if not torch.cuda.is_current_stream_capturing():   # a captured launch runs at replays
+        forward_launches += 1
+    return out
 
 
 @functools.lru_cache(maxsize=None)

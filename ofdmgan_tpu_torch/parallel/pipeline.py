@@ -169,7 +169,8 @@ class PipelineTrainStep:
     ``rec_weight * L1`` and returns the adversarial metric schema with the
     critic's entries zero, as the single-device ``n_critic = 0`` step."""
 
-    critic_route, generator_route, matmul_precision = "plain", "plain", "float32"
+    critic_route, generator_route, forward_route = "plain", "plain", "plain"
+    matmul_precision = "float32"
 
     def __init__(self, pipe: PipelineStep, loss_cfg: LossConfig):
         self.pipe, self.loss_cfg = pipe, loss_cfg

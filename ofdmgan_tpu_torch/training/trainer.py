@@ -632,6 +632,7 @@ class Trainer:
               f"critic {self.step.critic_route} | "
               f"precision {self.step.matmul_precision} | "
               f"generator {self.step.generator_route} | "
+              f"forward {self.step.forward_route} | "
               f"rank {distributed.rank()} of "
               f"{distributed.world_size()} | mesh {mesh}", flush=True)
         t0 = time.time()

@@ -22,8 +22,8 @@ update, and hands it to the rest: the same operation on the same inputs.
 Each kernel takes its part of the step where it covers the configuration,
 as the reference's ``use_pallas_datagen``/``use_pallas_critic`` flags do:
 ``TrainStep`` chooses once, at construction, from the configuration alone,
-and exposes the choice as ``datagen_route``, ``critic_route`` and
-``generator_route`` (``"kernel"`` or ``"plain"``):
+and exposes the choice as ``datagen_route``, ``critic_route``,
+``generator_route`` and ``forward_route`` (``"kernel"`` or ``"plain"``):
 
 * the batch comes from ``ops/datagen_kernel`` when ``datagen_kernel.covers``
   the ``DatagenConfig`` (AWGN, linear or the default nonlinear chain, a
@@ -38,7 +38,15 @@ and exposes the choice as ``datagen_route``, ``critic_route`` and
   critic at 16 samples) on the critic kernel's route, at ``float32``, with
   ``n_critic > 0`` and none of ``gen_forward``, ``critic_forward``,
   ``flat``, ``shard``, ``remat`` or ``act_dtype``; else from
-  ``generator_loss_fn`` and autograd.
+  ``generator_loss_fn`` and autograd;
+* the critic updates' no-grad fake comes from
+  ``generator_kernel.generator_forward`` where
+  ``generator_kernel.covers_forward`` the generator (the deployed mini
+  generator at 16 samples, no QAT, RTL or storage modes), at ``float32``,
+  with none of ``gen_forward``, ``flat``, ``shard``, ``remat`` or
+  ``act_dtype``, whatever the critic's route; else from the generator's
+  training forward (``TrainStep.forward``). The generator update's forward,
+  which needs a gradient, is never this route's.
 
 A kernel route runs the CUDA kernel for tensors on the GPU and its plain
 version on the CPU; a kernel that fails to build or launch raises, it is
@@ -377,7 +385,8 @@ class TrainStep:
         """Set the routes: all plain for the reference step, else each
         kernel where it covers the configuration (the critic's always with
         ``use_pallas_critic``; the generator update's only beside the
-        critic kernel's, see the module's docstring)."""
+        critic kernel's; the no-grad forward's at ``float32``, see the
+        module's docstring)."""
         self._reference = bool(value)
         kernel_data = not value and self.batch_fn is None and datagen_kernel.covers(self.dg_cfg)
         kernel_critic = not value and (self.use_pallas_critic or (
@@ -395,6 +404,12 @@ class TrainStep:
                       and generator_kernel.covers(self.generator, self.critic,
                                                   self.dg_cfg.frame_length))
         self.generator_route = "kernel" if kernel_gen else "plain"
+        kernel_fwd = (not value and self.matmul_precision == "float32"
+                      and self.act_dtype is None and self.flat is None and not self.remat
+                      and self.gen_forward is None and self.shard is None
+                      and generator_kernel.covers_forward(self.generator,
+                                                          self.dg_cfg.frame_length))
+        self.forward_route = "kernel" if kernel_fwd else "plain"
 
     def draw_batch(self, rng: torch.Generator):
         if self.batch_fn is not None:
@@ -472,9 +487,11 @@ class TrainStep:
     def critic_update(self, batch, alpha: torch.Tensor, fake: Optional[torch.Tensor] = None):
         """One critic update on ``batch``; returns its metrics and the fake
         it read. ``fake`` is the generator's no-grad forward of the batch's
-        noisy frames, computed here when not given."""
+        noisy frames, computed here when not given (on ``forward_route``)."""
         with spans.span("step.critic"):
-            if fake is None:
+            if fake is None and self.forward_route == "kernel":
+                fake = generator_kernel.generator_forward(self.generator, batch["noisy"])
+            elif fake is None:
                 with torch.no_grad():
                     fake = self.forward(batch["noisy"])
             if self.critic_route == "kernel":

@@ -9,6 +9,10 @@ and of ``chip_smoke.py``'s kernel phases, kept once here.
   1e-4 of the tensor's largest entry (plus ``floor``): the kernels sum the
   batch in another order.
 * Their metrics: rtol 1e-4, atol 1e-5.
+* The generator forward kernel's fake: rtol 1e-5, atol 1e-6 of its largest
+  entry, as for the datagen kernel: the same float32 forward of each frame,
+  each conv's taps summed in another order than cuDNN's and the plain
+  version's.
 
 Each check raises ``AssertionError`` naming the tensor that failed.
 """
@@ -30,6 +34,13 @@ def assert_datagen_close(got: Dict[str, torch.Tensor], ref: Dict[str, torch.Tens
     kernel's tolerance."""
     for k, r in ref.items():
         _close(got[k], r, 1e-5, 1e-6, f"{what} {k}")
+
+
+def assert_forward_close(got: torch.Tensor, ref: torch.Tensor,
+                         what: str = "generator forward") -> None:
+    """The forward kernel's fake within rtol 1e-5 and 1e-6 of ``ref``'s
+    largest entry."""
+    _close(got, ref, 1e-5, 1e-6 * float(ref.abs().max()), what)
 
 
 def assert_grads_close(got: Dict[str, torch.Tensor], ref: Dict[str, torch.Tensor],

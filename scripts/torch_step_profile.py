@@ -151,7 +151,8 @@ def main() -> int:
         "cudnn_benchmark": args.cudnn_benchmark,
         "frame_length": kern.dg_cfg.frame_length,
         "batch": args.batch, "n_critic": 5, "channel": args.channel, "nonlinear": args.nonlinear,
-        "routes": {"datagen": kern.datagen_route, "critic": kern.critic_route},
+        "routes": {"datagen": kern.datagen_route, "critic": kern.critic_route,
+                   "generator": kern.generator_route, "forward": kern.forward_route},
         "step_ms": times, "steps_per_s_kernel": 1e3 / wall_ms,
         "steps_per_s_plain": 1e3 / min(times["plain"]),
         "aten_calls_per_step": aten_calls,

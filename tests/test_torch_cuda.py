@@ -21,7 +21,14 @@ batches that leave a block's or a warp's last frame slots empty; under
 ``tensorfloat32`` precision bit for bit its float32 output (the kernel reads
 no TF32 flag). The generator-gradient kernel the
 same, against its plain version and against autograd of
-``generator_loss_fn``, and bit for bit against itself. The full U-Net family: the fused
+``generator_loss_fn``, and bit for bit against itself. The generator forward
+kernel against its plain version at rtol 1e-5, atol 1e-6 of the output's
+scale (as the datagen kernel: the same float32 forward, each conv's taps
+summed in another order) at both mappings, on contiguous, strided and
+sliced frames, each launch counted, bit for bit against itself and
+independent of the batch around a frame; the mini step's first critic
+update reads its fake, within that tolerance of the module's forward with
+TF32 off. The full U-Net family: the fused
 decoder within atol 1e-5 of the module's tanh output at float32; a full
 step on the kernel route and the reference step, each tensor's update
 within 1e-3 of its largest entry, as for the mini step. Quantization: the
@@ -68,8 +75,9 @@ chunk run eagerly from the same state and generator state, bit for bit
 second replay from that state; a replay after the generator moved on draws
 other batches; neither the capture nor a replay moves a wrapper's launch
 count, and a replay runs, by its profiler trace, one datagen launch,
-five critic launches and one generator-gradient launch (each gradient
-launch a per-block kernel and its sum) a step. The
+five critic launches, one generator-gradient launch (each gradient
+launch a per-block kernel and its sum) and one generator-forward launch a
+step. The
 flat step's ``tf32_matmul`` on the card against the CPU: the critic's
 scores within 1e-6 and the penalty's parameter gradients within 1e-3 of
 each tensor's largest entry (both are sums of exact products of bf16
@@ -104,8 +112,8 @@ from ofdmgan_tpu_torch.parallel.mesh import draw_seed, make_mesh, make_sharded_t
 from ofdmgan_tpu_torch.parallel.mesh import replica_generator
 from ofdmgan_tpu_torch.training.wgan_gp import LossConfig, TrainStep, critic_loss_fn
 from ofdmgan_tpu_torch.training.wgan_gp import generator_loss_fn
-from ofdmgan_tpu_torch.utils.kernel_checks import (assert_datagen_close, assert_grads_close,
-                                                   assert_metrics_close)
+from ofdmgan_tpu_torch.utils.kernel_checks import (assert_datagen_close, assert_forward_close,
+                                                   assert_grads_close, assert_metrics_close)
 
 pytestmark = pytest.mark.cuda
 
@@ -349,6 +357,92 @@ def test_a_refused_generator_kernel_launch_raises(cuda, monkeypatch):
     assert gk.launches == before
 
 
+# the forward kernel's batches: one frame, a block of 128 threads under
+# half full (63) and half full (64), a ragged last block (2112), the mini
+# cell's batch (65536: one wave of blocks on an H100)
+FORWARD_BATCHES = [1, 63, 64, 2112, 65536]
+
+
+def _forward_inputs(cuda, b, layout, seed=21):
+    """A mini generator off its initial weights and ``noisy`` ``[b, 16, 2]``
+    contiguous, strided (a ``[b, 2, 16]`` tensor transposed) or the first
+    half of a batch of ``2 b``."""
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        g = MiniGenerator().to(cuda)
+        with torch.no_grad():
+            for p in g.parameters():
+                p.add_(0.1 * torch.randn_like(p))
+    gen = torch.Generator(device=cuda).manual_seed(seed + b)
+    if layout == "strided":
+        return g, torch.randn(b, 2, 16, generator=gen, device=cuda).transpose(1, 2)
+    if layout == "half":
+        return g, torch.randn(2 * b, 16, 2, generator=gen, device=cuda)[:b]
+    return g, torch.randn(b, 16, 2, generator=gen, device=cuda)
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "strided", "half"])
+@pytest.mark.parametrize("b", FORWARD_BATCHES)
+def test_generator_forward_kernel_matches_plain_version(cuda, b, layout):
+    """The forward kernel against its plain version, one launch counted,
+    the fake contiguous."""
+    g, noisy = _forward_inputs(cuda, b, layout)
+    before = (gk.forward_launches, gk.launches)
+    got = gk.generator_forward(g, noisy)
+    assert (gk.forward_launches, gk.launches) == (before[0] + 1, before[1])
+    assert got.is_contiguous() and got.shape == (b, 16, 2)
+    assert_forward_close(got, gk.generator_forward_plain(g, noisy))
+
+
+def test_generator_forward_kernel_is_deterministic_frame_by_frame(cuda):
+    """Two calls give the same bits, and a frame's fake does not depend on
+    the batch around it: the first frames alone, and one frame alone, give
+    the whole batch's bits."""
+    g, noisy = _forward_inputs(cuda, 65536, "contiguous")
+    one, two = gk.generator_forward(g, noisy), gk.generator_forward(g, noisy)
+    assert torch.equal(one, two)
+    assert torch.equal(gk.generator_forward(g, noisy[:64]), one[:64])
+    assert torch.equal(gk.generator_forward(g, noisy[1000:1001]), one[1000:1001])
+
+
+def test_a_refused_generator_forward_launch_raises(cuda, monkeypatch):
+    """A launch the entry point refuses (here a batch of 0 frames) raises
+    and is not counted."""
+    g, noisy = _forward_inputs(cuda, 64, "contiguous")
+    prepare = gk.prepare_forward
+
+    def refused(*args):
+        fn, launch_args, out, keep = prepare(*args)
+        return fn, (0, *launch_args[1:]), out, keep
+
+    monkeypatch.setattr(gk, "prepare_forward", refused)
+    before = gk.forward_launches
+    with pytest.raises(RuntimeError, match="generator forward kernel launch failed"):
+        gk.generator_forward(g, noisy)
+    assert gk.forward_launches == before
+
+
+@pytest.mark.parametrize("b", [64, 65536])
+def test_the_mini_steps_first_critic_update_reads_the_forward_kernels_fake(cuda, b):
+    """The mini step on its kernel routes computes the critic updates' fake
+    with one forward launch, within the kernel's tolerance of
+    ``MiniGenerator.forward`` with TF32 off."""
+    from ofdmgan_tpu_torch.training.wgan_gp import matmul_precision
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        g, d = MiniGenerator().to(cuda), MiniDiscriminator().to(cuda)
+    step = TrainStep(g, d, make_adam(g.parameters(), 2e-4), make_adam(d.parameters(), 2e-4),
+                     sdg.DatagenConfig(), LossConfig(), b)
+    assert (step.critic_route, step.forward_route) == ("kernel", "kernel")
+    batch0, alphas, _ = step.draw(torch.Generator(device=cuda).manual_seed(2))
+    before = gk.forward_launches
+    _, fake = step.critic_update(batch0, alphas[0])
+    assert gk.forward_launches == before + 1
+    with torch.no_grad(), matmul_precision("float32"):
+        ref = g(batch0["noisy"])
+    assert_forward_close(fake, ref)
+
+
 def test_kernel_step_matches_plain_step(cuda):
     """One outer step through both kernels and through the plain path, from
     the same warmed-up state and the same draws (see
@@ -366,10 +460,10 @@ def test_kernel_step_matches_plain_step(cuda):
     start = [p.detach().clone() for m in (g, d) for p in m.parameters()]
     draws = sdg.make_draws(gen, 64, 16)
     alphas = [torch.rand(64, generator=gen, device=cuda) for _ in range(5)]
-    before = (dk.launches, ck.launches, gk.launches)
+    before = (dk.launches, ck.launches, gk.launches, gk.forward_launches)
     m_k = kern.run(dk.synthetic_batch_from_draws(draws, sdg.DatagenConfig()), alphas)
-    assert (dk.launches, ck.launches, gk.launches) == (before[0] + 1, before[1] + 5,
-                                                       before[2] + 1)
+    assert (dk.launches, ck.launches, gk.launches, gk.forward_launches) == (
+        before[0] + 1, before[1] + 5, before[2] + 1, before[3] + 1)
     m_p = plain.run(sdg.synthetic_batch_from_draws(draws, sdg.DatagenConfig()), alphas)
     assert_metrics_close(m_k, m_p)
     # each tensor's update agrees within 1e-3 of that update's largest entry
@@ -420,8 +514,9 @@ def test_one_generator_forward_for_the_critic_updates_takes_the_per_update_step(
     """One no-grad generator forward a step where the critic updates share
     the outer batch, five where each is handed it; from the same state and
     draws the two take the same step bit for bit: metrics, parameters and
-    Adam's moments. The mini at the benchmark's batch through the three
-    kernels, the full pair at a small size through the autograd critic."""
+    Adam's moments. The mini at the benchmark's batch through the four
+    kernels (its forwards the forward kernel's launches), the full pair at
+    a small size through the autograd critic (its forwards the module's)."""
     saved = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
@@ -432,11 +527,12 @@ def test_one_generator_forward_for_the_critic_updates_takes_the_per_update_step(
             once = TrainStep(g, d, make_adam(g.parameters(), 2e-4),
                              make_adam(d.parameters(), 2e-4), sdg.DatagenConfig(), LossConfig(),
                              65536)
-            routes = ("kernel", "kernel", "kernel")
+            routes = ("kernel", "kernel", "kernel", "kernel")
         else:
             once = _full_step(cuda)
-            routes = ("kernel", "plain", "plain")
-        assert (once.datagen_route, once.critic_route, once.generator_route) == routes
+            routes = ("kernel", "plain", "plain", "plain")
+        assert (once.datagen_route, once.critic_route, once.generator_route,
+                once.forward_route) == routes
         gen = torch.Generator(device=cuda).manual_seed(7)
         once(gen)
         each = copy.deepcopy(once)
@@ -447,9 +543,14 @@ def test_one_generator_forward_for_the_critic_updates_takes_the_per_update_step(
             step.generator.register_forward_hook(
                 lambda module, args, out, step=step: no_grad.__setitem__(
                     step, no_grad[step] + (not torch.is_grad_enabled())))
+        start = gk.forward_launches
         m_once = once.run(batch0, alphas)
+        mid = gk.forward_launches
         m_each = each.run(batch0, alphas, [batch0] * len(alphas))
         torch.cuda.synchronize()
+        if model == "mini":   # the forward kernel's route: the module's forward never runs
+            assert (no_grad[once], no_grad[each]) == (0, 0)
+            no_grad = {once: mid - start, each: gk.forward_launches - mid}
         assert (no_grad[once], no_grad[each]) == (1, 5)
         assert {k: float(v) for k, v in m_once.items()} == \
             {k: float(v) for k, v in m_each.items()}
@@ -816,7 +917,8 @@ def _world_of_one_rank() -> dict:
     dev = torch.device("cuda", torch.cuda.current_device())
     torch.backends.cudnn.deterministic = True
     dp, plain = _mini_pair(dev, 64, make_mesh({"dp": 1})), _mini_pair(dev, 64)
-    plain.generator_route = dp.generator_route   # a sharded step's is autograd's
+    # a sharded step's generator update is autograd's, its forward the module's
+    plain.generator_route, plain.forward_route = dp.generator_route, dp.forward_route
     seeds_dp, seeds_plain = torch.Generator().manual_seed(3), torch.Generator().manual_seed(3)
     equal = []
     for _ in range(4):
@@ -942,7 +1044,8 @@ def _traced_kernels(fn):
         torch.cuda.synchronize()
         prof.step()
     names = ("box_muller_kernel", "datagen_kernel", "critic_grad_kernel",
-             "critic_grad_sum_kernel", "generator_grad_kernel", "generator_grad_sum_kernel")
+             "critic_grad_sum_kernel", "generator_grad_kernel", "generator_grad_sum_kernel",
+             "generator_forward_kernel")
     events = [e for e in prof.key_averages() if e.device_type != torch.autograd.DeviceType.CPU]
     counts = {n: sum(e.count for e in events if re.search(rf"\b{n}\b", e.key)) for n in names}
     assert counts.pop("box_muller_kernel") > 0
@@ -955,8 +1058,8 @@ def test_a_graphed_chunk_matches_its_eager_twin_and_counts_its_launches(cuda, tm
     torch.backends.cudnn.deterministic = True
     try:
         t.chunk()   # the warm-up chunk
-        assert t.step.generator_route == "kernel"
-        dk.launches = ck.launches = gk.launches = 0
+        assert t.step.generator_route == t.step.forward_route == "kernel"
+        dk.launches = ck.launches = gk.launches = gk.forward_launches = 0
         t.chunk.capture()
         snap = ({k: v.detach().clone() for k, v in _graph_state(t).items()}, t.rng.get_state())
 
@@ -969,10 +1072,10 @@ def test_a_graphed_chunk_matches_its_eager_twin_and_counts_its_launches(cuda, tm
 
         m_replay, traced = _traced_kernels(t.chunk.replay)
         m_replay = {k: float(v) for k, v in m_replay.items()}
-        assert (dk.launches, ck.launches, gk.launches) == (0, 0, 0)
+        assert (dk.launches, ck.launches, gk.launches, gk.forward_launches) == (0, 0, 0, 0)
         assert traced == {"datagen_kernel": 4, "critic_grad_kernel": 20,
                           "critic_grad_sum_kernel": 20, "generator_grad_kernel": 4,
-                          "generator_grad_sum_kernel": 4}
+                          "generator_grad_sum_kernel": 4, "generator_forward_kernel": 4}
         replayed = [p.detach().clone() for p in _params(t)]
         restore()
         m_eager = {k: float(v) for k, v in t.chunk.eager().items()}

@@ -1,12 +1,18 @@
 """The generator-gradient kernel's plain version against autograd of
-``generator_loss_fn`` on the modules, and the step's ``generator_route``.
+``generator_loss_fn`` on the modules, and the step's ``generator_route``;
+the forward kernel's plain version against the module's forward and the
+JAX generator's, and where it covers a generator.
 
 The plain version is the kernel's hand-derived math (``ops/generator_kernel``);
 autograd differentiates the modules. Tolerances: each gradient within rtol
 1e-5 and 1e-5 of its tensor's largest entry, the metrics within rtol 1e-5
 and atol 1e-6 (float32 sums in another order on each side). The step on the
 kernel route (its plain version on the CPU) is held against the JAX step at
-the tolerances of ``tests/test_torch_train_step.py``.
+the tolerances of ``tests/test_torch_train_step.py``. The forward's plain
+version is held to the module's forward at the card's tolerance of the
+forward kernel (``utils/kernel_checks.assert_forward_close``: rtol 1e-5,
+atol 1e-6 of the output's scale) and to the JAX generator at the models'
+(atol and rtol 1e-5, ``tests/test_torch_models.py``).
 """
 
 import numpy as np
@@ -20,6 +26,7 @@ from ofdmgan_tpu_torch.ops import generator_kernel as gk
 from ofdmgan_tpu_torch.signal.datagen import DatagenConfig
 from ofdmgan_tpu_torch.training.schedules import make_adam
 from ofdmgan_tpu_torch.training.wgan_gp import LossConfig, TrainStep, generator_loss_fn
+from ofdmgan_tpu_torch.utils.kernel_checks import assert_forward_close
 from torch_threads import one_torch_thread  # noqa: F401  (autouse)
 
 
@@ -266,3 +273,91 @@ def test_kernel_route_step_matches_jax():
         ref = mu[name].numpy()
         np.testing.assert_allclose(p.opt_g.opt.state[param]["exp_avg"].numpy(), ref, rtol=1e-5,
                                    atol=1e-5 * float(np.abs(ref).max()) + 1e-12, err_msg=name)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("b", [1, 3, 64])
+def test_forward_plain_version_matches_the_module_and_jax(b, seed):
+    """``generator_forward_plain`` against ``MiniGenerator.forward`` and
+    against the JAX package's mini generator on the same weights."""
+    import jax
+
+    from ofdmgan_tpu.models import MiniGenerator as JGen
+    from ofdmgan_tpu_torch.utils.jax_params import to_jax_params
+
+    g, _ = _pair(seed)
+    _, noisy = _frames(b, seed)
+    got = gk.generator_forward_plain(g, noisy)
+    assert got.shape == (b, 16, 2) and got.dtype == torch.float32 and not got.requires_grad
+    with torch.no_grad():
+        assert_forward_close(got, g(noisy))
+    jparams = jax.tree_util.tree_map(np.asarray, to_jax_params(g))
+    ref = np.asarray(JGen().apply(jparams, noisy.numpy()))
+    np.testing.assert_allclose(got.numpy(), ref, atol=1e-5, rtol=1e-5)
+
+
+def test_the_forward_plain_version_is_the_gradient_plain_versions_forward():
+    """Both plain versions read one forward: the fake that
+    ``generator_grad_plain``'s L1 term sees is ``generator_forward_plain``'s,
+    bit for bit (a zero adversarial weight leaves the L1 term alone)."""
+    g, d = _pair(8)
+    clean, noisy = _frames(16, 8)
+    fake = gk.generator_forward_plain(g, noisy)
+    _, aux = gk.generator_grad_plain(g, d, clean, noisy, 0.0, 1.0)
+    assert torch.equal(aux["rec_loss"], (fake - clean).transpose(1, 2).abs().sum() / (32 * 16))
+
+
+@pytest.mark.parametrize("kw,L,covered", [
+    ({}, 16, True),
+    ({"leaky_slope": 0.1}, 16, True),
+    ({}, 32, False),
+    ({"input_residual": True}, 16, False),
+    ({"rtl_faithful": True}, 16, False),
+    ({"qat": True}, 16, False),
+    ({"act_dtype": "bfloat16"}, 16, False),
+    ({"enc1_channels": 8}, 16, False),
+    ({"bottleneck_channels": 16}, 16, False),
+])
+def test_covers_forward_the_deployed_mini_generator(kw, L, covered):
+    """The forward kernel covers the deployed generator at 16 samples,
+    whatever its slope, and no other; it asks nothing of a critic."""
+    g = MiniGenerator(**kw)
+    assert gk.covers_forward(g, L) is covered
+    if not covered and L == 16:
+        with pytest.raises(ValueError, match="generator forward kernel covers"):
+            gk.generator_forward(g, _frames(4, 0)[1])
+
+
+def test_covers_forward_refuses_the_full_unet():
+    assert not gk.covers_forward(FullUNetGenerator(frame_length=16, levels=2, base_channels=4),
+                                 16)
+
+
+@pytest.mark.parametrize("bad", ["float64", "short_frames", "no_frames", "flat"])
+def test_forward_of_other_frames_raises(bad):
+    g = MiniGenerator()
+    noisy = {"float64": torch.zeros(4, 16, 2, dtype=torch.float64),
+             "short_frames": torch.zeros(4, 8, 2), "no_frames": torch.zeros(0, 16, 2),
+             "flat": torch.zeros(4, 32)}[bad]
+    with pytest.raises(ValueError, match="noisy must be float32"):
+        gk.generator_forward(g, noisy)
+
+
+def test_cpu_forward_takes_the_plain_version():
+    g, _ = _pair(9)
+    _, noisy = _frames(33, 9)
+    before = (gk.forward_launches, gk.launches)
+    got = gk.generator_forward(g, noisy)
+    assert (gk.forward_launches, gk.launches) == before
+    assert torch.equal(got, gk.generator_forward_plain(g, noisy))
+
+
+@pytest.mark.parametrize("b,by", [(1, "bytes"), (64, "bytes"), (65536, "bytes")])
+def test_forward_bound(b, by):
+    """1,608 multiply-adds a frame at an H100's 67 TFLOP/s against 256 bytes
+    a frame and the 258 parameters at its 3.35 TB/s: the bytes bound at
+    every batch."""
+    ms, what = gk.forward_bound_ms(b, 67e12, 3.35e12)
+    assert what == by
+    assert ms == pytest.approx((256 * b + 258 * 4) / 3.35e12 * 1e3)
+    assert 2 * 1608 * b / 67e12 * 1e3 < ms

@@ -59,8 +59,9 @@ def _step(family, L, remat, reference, precision="float32"):
 ])
 def test_a_remat_step_takes_the_same_update(family, L, reference, precision):
     steps = [_step(family, L, remat, reference, precision) for remat in (False, True)]
-    assert steps[1].generator_route == "plain"
-    steps[0].generator_route = "plain"   # the recomputation is compared on autograd's route
+    assert steps[1].generator_route == steps[1].forward_route == "plain"
+    # the recomputation is compared on autograd's route and the module's forward
+    steps[0].generator_route = steps[0].forward_route = "plain"
     start = [p.detach().clone() for m in (steps[0].generator, steps[0].critic)
              for p in m.parameters()]
     # one warm-up step from the same draws first: Adam's first step is a sign

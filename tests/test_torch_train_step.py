@@ -26,6 +26,7 @@ from ofdmgan_tpu.training import make_train_step
 from ofdmgan_tpu.training.wgan_gp import LossConfig as JLossConfig
 from ofdmgan_tpu_torch.models import MiniDiscriminator, MiniGenerator
 from ofdmgan_tpu_torch.ops import critic_kernel, datagen_kernel
+from ofdmgan_tpu_torch.ops import generator_kernel
 from ofdmgan_tpu_torch.signal.channel import ChannelConfig
 from ofdmgan_tpu_torch.signal.impairments import ImpairmentConfig
 from ofdmgan_tpu_torch.signal.datagen import DatagenConfig, make_draws, synthetic_batch_from_draws
@@ -336,18 +337,109 @@ def test_one_generator_forward_for_the_critic_updates_takes_the_per_update_step(
     (LossConfig(fresh_critic_batches=True), 5),
     (LossConfig(n_critic=0, adv_weight=0.0), 0),
 ], ids=["one_batch", "fresh_batches", "supervised"])
-def test_no_grad_generator_forwards_a_step(reference, loss, forwards):
+def test_no_grad_generator_forwards_a_step(reference, loss, forwards, monkeypatch):
     """One no-grad generator forward a step where the critic updates share
     the outer batch, one an update with fresh batches, none on the
-    supervised path; the generator update's own forward runs with grad."""
+    supervised path: the module's on the plain forward route, the forward
+    kernel's (its plain version here) on the kernel route; the generator
+    update's own forward runs with grad."""
     with torch.random.fork_rng(devices=[]):
         torch.manual_seed(0)
         g, d = MiniGenerator(), MiniDiscriminator()
     step = TrainStep(g, d, make_adam(g.parameters(), LR), make_adam(d.parameters(), LR),
                      DatagenConfig(), loss, B, reference=reference)
-    grad_modes = []
+    assert step.forward_route == ("plain" if reference else "kernel")
+    grad_modes, kernel_forwards = [], []
     g.register_forward_hook(lambda module, args, out: grad_modes.append(torch.is_grad_enabled()))
+    real = generator_kernel.generator_forward
+    monkeypatch.setattr(generator_kernel, "generator_forward",
+                        lambda *a: kernel_forwards.append(1) or real(*a))
     metrics = step(torch.Generator().manual_seed(3))
-    assert grad_modes.count(False) == forwards
+    no_grad = kernel_forwards if step.forward_route == "kernel" else \
+        [m for m in grad_modes if not m]
+    assert len(no_grad) == forwards
+    assert grad_modes.count(False) == (0 if step.forward_route == "kernel" else forwards)
     assert grad_modes.count(True) == (step.generator_route == "plain")
     assert all(bool(torch.isfinite(v)) for v in metrics.values())
+
+
+def _forward_route_step(case):
+    """A mini step (or another) in one configuration of
+    ``test_forward_route_follows_the_configuration``."""
+    from ofdmgan_tpu_torch.models import flat
+    from ofdmgan_tpu_torch.models.full_unet import FullDiscriminator, FullUNetGenerator
+    g, d, L, kw = MiniGenerator(), MiniDiscriminator(), 16, {}
+    if case == "image_batches":
+        kw["batch_fn"] = lambda rng, n: None
+    elif case == "fresh_batches":
+        kw["loss"] = LossConfig(fresh_critic_batches=True)
+    elif case == "narrow_critic":   # the critic's route is autograd's
+        d = MiniDiscriminator(conv1_channels=4)
+    elif case == "reference":
+        kw["reference"] = True
+    elif case in ("tensorfloat32", "bfloat16"):
+        kw["matmul_precision"] = case
+    elif case == "act_dtype":
+        kw["act_dtype"] = "bfloat16"
+    elif case == "generator_act_dtype":
+        g = MiniGenerator(act_dtype="bfloat16")
+    elif case in ("qat", "rtl_faithful", "input_residual"):
+        g = MiniGenerator(**{case: True})
+    elif case == "flat":
+        kw["flat"] = flat.make_flat_step(g, d, 16)
+    elif case == "remat":
+        kw["remat"] = True
+    elif case == "gen_forward":
+        kw["gen_forward"] = lambda module, x: module(x)
+    elif case == "shard":
+        kw["shard"] = object()
+    elif case == "full_unet":
+        g, d, L = (FullUNetGenerator(frame_length=64, levels=3, base_channels=8),
+                   FullDiscriminator(frame_length=64, levels=3, base_channels=8), 64)
+    elif case == "frame_length_32":
+        L = 32
+    loss = kw.pop("loss", LossConfig())
+    return TrainStep(g, d, make_adam(g.parameters(), LR), make_adam(d.parameters(), LR),
+                     DatagenConfig(frame_length=L), loss, B, **kw)
+
+
+@pytest.mark.parametrize("case", [
+    "mini", "image_batches", "fresh_batches", "narrow_critic", "reference", "tensorfloat32",
+    "bfloat16", "act_dtype", "generator_act_dtype", "qat", "rtl_faithful", "input_residual",
+    "flat", "remat", "gen_forward", "shard", "full_unet", "frame_length_32"])
+def test_forward_route_follows_the_configuration(case):
+    """``kernel`` where the step is not the reference, at ``float32``, with
+    no ``act_dtype``, ``flat``, ``remat``, ``gen_forward`` or ``shard``, and
+    ``covers_forward`` holds, whatever the critic's route; ``plain``
+    elsewhere, and again after ``reference`` is set and cleared."""
+    step = _forward_route_step(case)
+    want = "kernel" if case in ("mini", "image_batches", "fresh_batches",
+                                "narrow_critic") else "plain"
+    assert step.forward_route == want
+    if case == "narrow_critic":
+        assert step.critic_route == "plain"
+    step.reference = True
+    assert step.forward_route == "plain"
+    step.reference = case == "reference"
+    assert step.forward_route == want
+
+
+@pytest.mark.parametrize("conv1", [8, 4], ids=["critic_kernel", "critic_autograd"])
+def test_kernel_forward_route_gives_the_first_updates_fake(conv1):
+    """A CPU step on the forward kernel's route hands its first critic
+    update the plain forward's fake (the kernel's plain version here), bit
+    for bit, and the module's forward within the kernel's tolerance, on
+    either critic route."""
+    from ofdmgan_tpu_torch.utils.kernel_checks import assert_forward_close
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(0)
+        g, d = MiniGenerator(), MiniDiscriminator(conv1_channels=conv1)
+    step = TrainStep(g, d, make_adam(g.parameters(), LR), make_adam(d.parameters(), LR),
+                     DatagenConfig(), LossConfig(), B)
+    assert step.forward_route == "kernel"
+    gen = torch.Generator().manual_seed(4)
+    batch0, alphas, _ = step.draw(gen)
+    _, fake = step.critic_update(batch0, alphas[0])
+    assert torch.equal(fake, generator_kernel.generator_forward_plain(g, batch0["noisy"]))
+    with torch.no_grad():
+        assert_forward_close(fake, g(batch0["noisy"]))
